@@ -3,9 +3,11 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path — the ReCross sharded embedding server — at
-the full table sizes of the ``dlrm-recross`` model and holds every CUDA
-kernel of that path against its plain PyTorch version on the card.
+Drives the port's main paths — the ReCross sharded embedding server, and
+DLRM forward and SGD training through the crossbar kernel with the
+embedding-bag kernel as the naive datapath — at the full sizes of the
+``dlrm-recross`` model and holds every CUDA kernel of those paths against
+its plain PyTorch version on the card.
 Phases, in order; any failure propagates and the process exits non-zero:
 
 1. device: the card's name and power limit (``nvidia-smi``); TF32 off;
@@ -21,9 +23,22 @@ Phases, in order; any failure propagates and the process exits non-zero:
    ``submit``/``flush``; sampled rows checked against a plain gather+sum
    on the card; the kernel's launches counted over this run;
 5. flat op: ``ops.crossbar_reduce`` on one table's compiled queries
-   against ``reduce_dense_oracle`` on the card.
+   against ``reduce_dense_oracle`` on the card;
+6. embedding-bag parity: the embedding-bag kernel against its plain
+   version at small shapes (f32, bf16, -1 padding) and at the main-path
+   shape (932,019 x 128 f32 table, 256 bags x 64), forward and gradient,
+   timed beside its plain version and ``F.embedding_bag``;
+7. DLRM: ``dlrm-recross`` FULL (8 tables x 932,019 rows, embed_dim 64,
+   bottom 512-256-64, top 1024-512-1) on the serving phase's layouts and
+   tables, batch 256; at step 0 the naive datapath (``ops.embedding_bag``
+   on the 128-wide tables), the ReCross one (``ops.crossbar_reduce`` on the
+   images) and the dense path agree per table, the kernel path's logits
+   equal the dense path's, and loss and every gradient equal autograd
+   through the plain versions; then 20 SGD steps through
+   ``launch.train_dlrm.train`` with finite losses.
 
-It then prints one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line,
+Both kernels are built in parallel (one ``nvcc`` per source).  It then
+prints one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line,
 and as its last line ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or outside a checkout of the repository, it exits non-zero and
 prints no result.  It imports nothing of ``jax`` or ``repro``.
@@ -31,12 +46,15 @@ prints no result.  It imports nothing of ``jax`` or ``repro``.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from unittest import mock
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -57,6 +75,9 @@ HISTORY = 100_000
 STREAM_PER_TABLE = 512                 # 8 x 512 = 4,096 served queries
 SAMPLE_ROWS = 256
 PLAN_BUDGET_S = 180.0
+MAX_BAG = 64                           # dlrm-recross FULL
+TRAIN_STEPS = 20
+LR = 1e-2
 DEVICE = "cuda"
 
 
@@ -307,7 +328,7 @@ def phase_serving(torch, np, timer):
     half = -(-sbq.num_blocks // 2)
     real = parity(torch, timer, "serving-flush/q8", server.shard_images[0],
                   sbq.tile_ids[0, :half].contiguous(), sbq.bitmaps[0, :half].contiguous())
-    return stats, real, server, tables, streams
+    return stats, real, server, tables, streams, histories
 
 
 def phase_flat(torch, timer, server, tables, streams) -> dict:
@@ -338,16 +359,251 @@ def phase_flat(torch, timer, server, tables, streams) -> dict:
     return {"launches": launches, "row": row, "oracle_err": err}
 
 
-def kernel_entry(name, replaces, launches, row) -> dict:
+def eb_work(torch, table, idx):
+    """Least bytes and operations of one embedding bag on these inputs:
+    each distinct valid row read once, the indices read once, the output
+    written once; one add per valid lookup and column."""
+    esize = table.element_size()
+    dim = table.shape[1]
+    valid = idx[idx >= 0].clamp_max(table.shape[0] - 1)
+    nbytes = (int(torch.unique(valid).numel()) * dim * esize
+              + idx.numel() * idx.element_size() + idx.shape[0] * dim * esize)
+    return nbytes, int(valid.numel()) * dim
+
+
+def eb_parity(torch, timer, name, table, idx, *, timed=False) -> dict:
+    """Embedding-bag kernel vs its plain version on the card; raises past
+    the tolerance.  Timed cases add ``F.embedding_bag`` as the library
+    call (a yardstick the port never calls)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.embedding_bag import embedding_bag_cuda
+
+    out = embedding_bag_cuda(table, idx)
+    torch.cuda.synchronize()
+    want = ref.embedding_bag_ref(table, idx)
+    dtype = str(table.dtype).removeprefix("torch.")
+    err = float((out.float() - want.float()).abs().max().item()) if out.numel() else 0.0
+    if not (out.shape == want.shape and out.dtype == table.dtype and err <= TOL[dtype]):
+        raise AssertionError(
+            f"{name}: embedding-bag kernel disagrees with its plain version: "
+            f"shape {tuple(out.shape)} vs {tuple(want.shape)}, max_abs_err {err} "
+            f"> {TOL[dtype]}"
+        )
+    nbytes, flops = eb_work(torch, table, idx)
+    bound_ms, bound_by = bound(nbytes, flops, dtype)
+    row = {"case": name, "dtype": dtype, "shape": [list(table.shape), list(idx.shape)],
+           "max_abs_err": err, "tol": TOL[dtype], "bytes": nbytes, "flops": flops,
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    if timed:
+        lib_idx = idx.clamp_min(0).long()
+        weights = (idx >= 0).to(table.dtype)
+
+        def library():
+            return torch.nn.functional.embedding_bag(
+                lib_idx, table, mode="sum", per_sample_weights=weights)
+
+        lib_err = float((library().float() - want.float()).abs().max().item())
+        row["ms"] = timer.ms(lambda: embedding_bag_cuda(table, idx))
+        row["plain_ms"] = timer.ms(lambda: ref.embedding_bag_ref(table, idx), reps=10)
+        row["library_ms"] = timer.ms(library)
+        row["library_max_abs_err"] = lib_err
+        row["GB_per_s"] = nbytes / row["ms"] / 1e6
+    log("eb-parity", json.dumps(row))
+    return row
+
+
+def random_bags(torch, gen, rows, batch, bag, mean_len):
+    """(batch, bag) int32 row ids on the card, each bag ``1 + Poisson(mean_len
+    - 1)`` ids long (at most ``bag``) and -1 padded after."""
+    ids = torch.randint(0, rows, (batch, bag), generator=gen, device=DEVICE,
+                        dtype=torch.int32)
+    lens = (1 + torch.poisson(torch.full((batch,), mean_len - 1.0, device=DEVICE),
+                              generator=gen)).clamp_max(bag)
+    pos = torch.arange(bag, device=DEVICE)[None, :]
+    return torch.where(pos < lens[:, None], ids, torch.full_like(ids, -1))
+
+
+def phase_embedding_bag(torch, timer) -> dict:
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    # tests/test_kernels.py's shapes (rows, D, B, K), last column padding
+    for rows, dim, batch, bag in [(64, 128, 4, 8), (100, 128, 2, 5),
+                                  (257, 256, 8, 16), (16, 512, 1, 3)]:
+        for dtype in (torch.float32, torch.bfloat16):
+            table = torch.randn((rows, dim), generator=gen, device=DEVICE).to(dtype)
+            idx = torch.randint(0, rows, (batch, bag), generator=gen, device=DEVICE,
+                                dtype=torch.int32)
+            idx[:, -1] = -1
+            eb_parity(torch, timer, "small", table, idx)
+    # the main-path shape: one dlrm-recross table at the kernel's 128 columns
+    table = torch.randn((ROWS, PADDED_DIM), generator=gen, device=DEVICE)
+    idx = random_bags(torch, gen, ROWS, BATCH_SIZE, MAX_BAG, 32.0)
+    row = eb_parity(torch, timer, "main-path", table, idx, timed=True)
+    eb_parity(torch, timer, "main-path/bf16", table.bfloat16(), idx)
+    # gradient: the op's index_add_ backward vs autograd through the plain
+    # version (both f32 atomics, in different orders)
+    g = torch.randn((BATCH_SIZE, PADDED_DIM), generator=gen, device=DEVICE)
+    leaf = table.requires_grad_(True)
+    (d_op,) = torch.autograd.grad(ops.embedding_bag(leaf, idx), leaf, g)
+    (d_ref,) = torch.autograd.grad(ref.embedding_bag_ref(leaf, idx), leaf, g)
+    grad_err = float((d_op - d_ref).abs().max().item())
+    if grad_err > TOL["float32"]:
+        raise AssertionError(f"embedding-bag gradient disagrees: {grad_err}")
+    log(f"eb-grad: main-path d_table max_abs_err {grad_err}")
+    row["grad_max_abs_err"] = grad_err
+    del table, leaf, d_op, d_ref, g
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_dlrm(torch, np, timer, server, tables, histories) -> dict:
+    """DLRM forward and SGD training at dlrm-recross FULL width on the
+    serving phase's layouts and tables (no second plan build)."""
+    from repro_torch.configs.dlrm_recross import FULL
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.crossbar_reduce import crossbar_reduce_cuda
+    from repro_torch.kernels.embedding_bag import embedding_bag_cuda
+    from repro_torch.launch import train_dlrm as tl
+    from repro_torch.models.dlrm import build_images, dlrm_forward, init_dlrm
+
+    cfg = dataclasses.replace(FULL, num_tables=len(server.names))
+    if cfg.num_tables != FULL.num_tables:
+        log(f"dlrm: CUT num_tables {FULL.num_tables} -> {cfg.num_tables} (serving's cut)")
+    names = [f"t{t}" for t in range(cfg.num_tables)]
+    if sorted(names) != server.names or cfg.rows_per_table != ROWS:
+        raise AssertionError(f"serving tables {server.names} are not DLRM's {names}")
+    if cfg.embed_dim != EMBED_DIM or cfg.max_bag != MAX_BAG:
+        raise AssertionError("serving's tables are not dlrm-recross FULL width")
+    kcfg = dataclasses.replace(cfg, embedding_path="kernel")
+    dcfg = dataclasses.replace(cfg, embedding_path="dense")
+    torch.cuda.reset_peak_memory_stats()
+
+    # serving's 128-wide tables are zero past column 64: the naive path's
+    # padded tables; their first 64 columns are DLRM's logical tables.
+    # Serving is done with them, so they are scaled in place from N(0, 1)
+    # to init_dlrm's N(0, 0.01²): N(0, 1) rows summed over ~32 lookups give
+    # interaction logits in the thousands, which SGD at lr 1e-2 blows up.
+    t0 = time.perf_counter()
+    params = init_dlrm(torch.Generator(device=DEVICE).manual_seed(0), cfg, device=DEVICE)
+    for n in names:
+        tables[n].mul_(0.01)
+    params["tables"] = {n: tables[n][:, :EMBED_DIM].contiguous() for n in names}
+    layouts = {n: dataclasses.replace(server.layouts[server.names.index(n)], dim=EMBED_DIM)
+               for n in names}
+    images = build_images(params, cfg, layouts)
+    tr = tl.trainable_set(params, images)
+    images = tr["images"]
+    setup_s = time.perf_counter() - t0
+    image_bytes = sum(v.numel() * v.element_size() for v in images.values())
+    log(f"dlrm: images {image_bytes} B for {cfg.num_tables} tables built in {setup_s:.2f} s")
+
+    rng = np.random.default_rng(0)
+    batches = {}
+
+    def batch_fn(step):
+        if step not in batches:
+            lo = step * BATCH_SIZE
+            qs = {n: [q[:MAX_BAG] for q in histories[n][lo:lo + BATCH_SIZE]] for n in names}
+            dense = rng.normal(size=(BATCH_SIZE, cfg.dense_features)).astype(np.float32)
+            batches[step] = (qs, dense, tl.ctr_labels(qs, dense))
+        return batches[step]
+
+    crossbar_reduce_cuda.launches = 0
+    embedding_bag_cuda.launches = 0
+    qs, dense_np, labels_np = batch_fn(0)
+    dense = torch.from_numpy(dense_np).to(DEVICE)
+    labels = torch.from_numpy(labels_np).to(DEVICE)
+    sparse = tl.compile_sparse(layouts, qs, device=DEVICE)
+    idx = {n: torch.from_numpy(tl.bag_indices(qs[n], MAX_BAG)).to(DEVICE) for n in names}
+
+    # a. naive (embedding-bag kernel on the padded table) == ReCross
+    # (crossbar kernel on the image) == the dense path, per table
+    errs = {"naive_vs_dense": 0.0, "recross_vs_dense": 0.0, "naive_vs_recross": 0.0}
+    with torch.no_grad():
+        for n in names:
+            naive = ops.embedding_bag(tables[n], idx[n])[:, :EMBED_DIM]
+            recross = ops.crossbar_reduce(images[n], *sparse[n])[:, :EMBED_DIM]
+            take = params["tables"][n][idx[n].long().clamp(0, ROWS - 1)]
+            dense_e = (take * (idx[n] >= 0)[..., None]).sum(dim=1)
+            for key, a, b in (("naive_vs_dense", naive, dense_e),
+                              ("recross_vs_dense", recross, dense_e),
+                              ("naive_vs_recross", naive, recross)):
+                errs[key] = max(errs[key], float((a - b).abs().max().item()))
+        # b. logits of the kernel path == the dense path
+        p = {"tables": params["tables"], "bottom": tr["bottom"], "top": tr["top"]}
+        logits_k = dlrm_forward(p, kcfg, dense, sparse, images=images)
+        logits_d = dlrm_forward(p, dcfg, dense, idx)
+        errs["logits_kernel_vs_dense"] = float((logits_k - logits_d).abs().max().item())
+    # c. loss and every gradient: kernels vs autograd through the plain versions
+    leaves = tl.leaves(tr)
+    loss_k, _ = tl.loss_and_logits(tr, kcfg, dense, sparse, labels)
+    grads_k = torch.autograd.grad(loss_k, leaves)
+
+    def plain_crossbar(image, tile_ids, bitmaps, dynamic_switch=True):
+        return ref.crossbar_reduce_ref(image, tile_ids, bitmaps)
+
+    with mock.patch.object(ops, "crossbar_reduce", plain_crossbar):
+        loss_p, _ = tl.loss_and_logits(tr, kcfg, dense, sparse, labels)
+        grads_p = torch.autograd.grad(loss_p, leaves)
+    errs["loss"] = abs(loss_k.item() - loss_p.item())
+    errs["grads"] = max(float((a - b).abs().max().item()) for a, b in zip(grads_k, grads_p))
+    del grads_k, grads_p, loss_k, loss_p
+    torch.cuda.synchronize()
+    log("dlrm-checks", json.dumps(errs))
+    bad = {k: v for k, v in errs.items() if not v <= TOL["float32"]}
+    if bad:
+        raise AssertionError(f"dlrm step-0 checks past {TOL['float32']}: {bad}")
+
+    launches0 = crossbar_reduce_cuda.launches
+    stats = tl.train(kcfg, layouts, tr, batch_fn, TRAIN_STEPS, lr=LR, device=DEVICE,
+                     log_every=5)
+    torch.cuda.synchronize()
+    crossbar_launches = crossbar_reduce_cuda.launches
+    eb_launches = embedding_bag_cuda.launches
+    if not all(np.isfinite(stats.losses)):
+        raise AssertionError(f"non-finite DLRM loss: {stats.losses}")
+    if crossbar_launches <= 0 or eb_launches <= 0:
+        raise AssertionError(f"dlrm ran crossbar {crossbar_launches} and embedding-bag "
+                             f"{eb_launches} kernel launches")
+
+    # the same batch: the naive datapath over 8 tables vs ReCross over 8 images
+    with torch.no_grad():
+        eb_ms = timer.ms(lambda: [embedding_bag_cuda(tables[n], idx[n]) for n in names])
+        xb_ms = timer.ms(lambda: [crossbar_reduce_cuda(images[n].detach(), *sparse[n])
+                                  for n in names])
+    step_ms = np.asarray(stats.step_s) * 1e3
+    out = {
+        "tables": cfg.num_tables, "rows": cfg.rows_per_table, "embed_dim": cfg.embed_dim,
+        "bottom_mlp": list(cfg.bottom_mlp), "top_mlp": list(cfg.top_mlp),
+        "batch": BATCH_SIZE, "max_bag": MAX_BAG, "steps": TRAIN_STEPS, "lr": LR,
+        "max_tiles_step0": {n: int(sparse[n][0].shape[1]) for n in names},
+        "setup_s": setup_s, "checks": errs,
+        "loss_first": stats.losses[0], "loss_last": stats.losses[-1],
+        "step_p50_ms": float(np.percentile(step_ms, 50)),
+        "step_p99_ms": float(np.percentile(step_ms, 99)),
+        "host_compile_s": float(np.sum(stats.compile_s)),
+        "host_compile_p50_ms": float(np.percentile(stats.compile_s, 50)) * 1e3,
+        "crossbar_launches": crossbar_launches,
+        "crossbar_launches_per_step_fwd": (crossbar_launches - launches0) / TRAIN_STEPS,
+        "embedding_bag_launches": eb_launches,
+        "image_bytes": image_bytes,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "naive_8_tables_ms": eb_ms, "recross_8_images_ms": xb_ms,
+    }
+    log("dlrm", json.dumps(out))
+    return out
+
+
+def kernel_entry(name, source, replaces, launches, row) -> dict:
     return {
-        "name": name, "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/crossbar_reduce.cu",
+        "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches,
         "max_abs_err": row["max_abs_err"], "ms": row["ms"],
         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"],
-        # no single PyTorch call computes this masked tile reduction
-        "library_ms": None,
+        # None where no single PyTorch call computes the function
+        "library_ms": row.get("library_ms"),
     }
 
 
@@ -370,23 +626,34 @@ def main() -> int:
 
     from repro_torch.kernels import _build
 
-    path, build_s, build_log = _build.build("crossbar")
+    # one nvcc per source, all started together
+    with ThreadPoolExecutor(len(_build.LIBRARIES)) as pool:
+        built = dict(zip(_build.LIBRARIES, pool.map(_build.build, _build.LIBRARIES)))
     _build.load_crossbar()
-    log(f"build: {path.relative_to(ROOT)} in {build_s:.2f} s")
-    log("\n".join(l for l in build_log.splitlines() if "registers" in l or "spill" in l))
+    _build.load_embedding_bag()
+    for name, (path, build_s, build_log) in built.items():
+        log(f"build: {path.relative_to(ROOT)} in {build_s:.2f} s")
+        log("\n".join(l for l in build_log.splitlines() if "registers" in l or "spill" in l))
 
     timer = Timer(torch)
     phase_parity(torch, timer)
-    serving, serving_row, server, tables, streams = phase_serving(torch, np, timer)
+    serving, serving_row, server, tables, streams, histories = phase_serving(torch, np, timer)
     flat = phase_flat(torch, timer, server, tables, streams)
+    eb_row = phase_embedding_bag(torch, timer)
+    dlrm = phase_dlrm(torch, np, timer, server, tables, histories)
 
+    crossbar_src = "src/repro_torch/kernels/csrc/crossbar_reduce.cu"
     kernels = [
-        kernel_entry("crossbar_reduce_blocked",
+        kernel_entry("crossbar_reduce_blocked", crossbar_src,
                      "src/repro/kernels/crossbar_reduce.py:103",
                      serving["kernel_launches"], serving_row),
-        kernel_entry("crossbar_reduce_flat",
+        # launches over the flat-op and DLRM phases
+        kernel_entry("crossbar_reduce_flat", crossbar_src,
                      "src/repro/kernels/crossbar_reduce.py:54",
-                     flat["launches"], flat["row"]),
+                     flat["launches"] + dlrm["crossbar_launches"], flat["row"]),
+        kernel_entry("embedding_bag", "src/repro_torch/kernels/csrc/embedding_bag.cu",
+                     "src/repro/kernels/embedding_bag.py:57",
+                     dlrm["embedding_bag_launches"], eb_row),
     ]
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

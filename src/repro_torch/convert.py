@@ -39,3 +39,18 @@ def shard_images_from_numpy(images: np.ndarray, device="cuda") -> torch.Tensor:
     """``np.asarray(jax_server.shard_images)`` → the port's image stack,
     ``(num_shards, local_tiles, tile_rows, dim)`` on ``device``."""
     return _tensor(np.asarray(images), device)
+
+
+def dlrm_params_from_numpy(params, device="cuda"):
+    """JAX ``init_dlrm``'s tree of host arrays → the port's DLRM parameters.
+
+    ``{"tables": {name: (rows, dim)}, "bottom": [{"w", "b"}, ...], "top":
+    [...]}`` keeps its structure and every array its layout, bit for bit:
+    a dense ``w`` stays ``(d_in, d_out)`` (both packages compute
+    ``x @ w + b``), so no transpose is made.
+    """
+    if isinstance(params, dict):
+        return {k: dlrm_params_from_numpy(v, device) for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return [dlrm_params_from_numpy(v, device) for v in params]
+    return _tensor(np.asarray(params), device)

@@ -29,7 +29,7 @@ NVCC_FLAGS = [
 ]
 
 #: library name → source file under csrc/
-LIBRARIES = {"crossbar": "crossbar_reduce.cu"}
+LIBRARIES = {"crossbar": "crossbar_reduce.cu", "embedding_bag": "embedding_bag.cu"}
 
 
 def nvcc_path() -> str:
@@ -87,4 +87,21 @@ def load_crossbar() -> ctypes.CDLL:
     lib.crossbar_reduce_launch.restype = ctypes.c_int
     lib.crossbar_error_string.argtypes = [ctypes.c_int]
     lib.crossbar_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def load_embedding_bag() -> ctypes.CDLL:
+    """The embedding-bag library, built on first call, with its C
+    signatures declared (every pointer and the stream as ``c_void_p``)."""
+    path, _, _ = build("embedding_bag")
+    lib = ctypes.CDLL(str(path))
+    lib.embedding_bag_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p,
+    ]
+    lib.embedding_bag_launch.restype = ctypes.c_int
+    lib.embedding_bag_error_string.argtypes = [ctypes.c_int]
+    lib.embedding_bag_error_string.restype = ctypes.c_char_p
     return lib

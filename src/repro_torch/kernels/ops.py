@@ -1,10 +1,10 @@
-"""Differentiable crossbar reductions (``torch.autograd.Function``).
+"""Differentiable kernel ops (``torch.autograd.Function``).
 
-The port of ``repro.kernels.ops``' ``crossbar_reduce`` and
-``crossbar_reduce_blocked``.  The forward is the CUDA kernel (the plain
-version on CPU tensors); the backward is the transposed one-hot scatter
-with ``index_add_`` — the JAX package's backward is plain XLA too, so no
-backward kernel is due.
+The port of ``repro.kernels.ops``' ``crossbar_reduce``,
+``crossbar_reduce_blocked`` and ``embedding_bag``.  Each forward is a
+CUDA kernel (its plain version on CPU tensors); each backward is the
+transposed scatter with ``index_add_`` — the JAX package's backwards are
+plain XLA too, so no backward kernel is due.
 """
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.crossbar_reduce import crossbar_reduce_cuda
+from repro_torch.kernels.embedding_bag import embedding_bag_cuda
 
 
 class _CrossbarReduce(torch.autograd.Function):
@@ -77,3 +78,39 @@ def crossbar_reduce_blocked(image, tile_ids, bitmaps, dynamic_switch: bool = Tru
       (nb * q_block, dim) reduced embeddings in block-major query order.
     """
     return _CrossbarReduce.apply(image, tile_ids, bitmaps, dynamic_switch)
+
+
+class _EmbeddingBag(torch.autograd.Function):
+    """Embedding-bag kernel forward; transposed scatter backward."""
+
+    @staticmethod
+    def forward(ctx, table, indices):
+        ctx.save_for_backward(indices)
+        ctx.table_shape = table.shape
+        ctx.table_dtype = table.dtype
+        return embedding_bag_cuda(table, indices)
+
+    @staticmethod
+    def backward(ctx, g):
+        (indices,) = ctx.saved_tensors
+        rows, dim = ctx.table_shape
+        # d_table[r] += Σ_{b,k: indices[b,k]==r} g[b]; like the JAX scatter,
+        # an index past the table drops its update
+        valid = (indices >= 0) & (indices < rows)
+        contrib = g.float()[:, None, :].expand(-1, indices.shape[1], -1)[valid]
+        d_table = torch.zeros((rows, dim), dtype=torch.float32, device=g.device)
+        d_table.index_add_(0, indices[valid].long(), contrib)
+        return d_table.to(ctx.table_dtype), None
+
+
+def embedding_bag(table, indices):
+    """out[b] = Σ_k table[indices[b,k]]  (-1 padded; kernel forward).
+
+    Args:
+      table: (rows, dim) embedding table, ``dim % 128 == 0``.
+      indices: (batch, bag) int32 row ids, -1 padded.
+
+    Returns:
+      (batch, dim) bag sums, table dtype; differentiable in table.
+    """
+    return _EmbeddingBag.apply(table, indices)

@@ -40,3 +40,18 @@ def crossbar_reduce_ref(
     The flat layout is the blocked one at ``q_block=1``.
     """
     return crossbar_reduce_blocked_ref(image, tile_ids, bitmaps[:, :, None, :])
+
+
+def embedding_bag_ref(
+    table: torch.Tensor,    # (rows, dim)
+    indices: torch.Tensor,  # (batch, bag) int, -1 padding
+) -> torch.Tensor:
+    """Padded embedding bag: out[b] = sum_k table[indices[b, k]].
+
+    Padding (``indices < 0``) contributes 0; an index at or past ``rows``
+    reads the last row (clamped, as the JAX oracle clamps).  Rows are
+    summed in float32 and the result is cast to the table dtype.
+    """
+    rows = table.shape[0]
+    take = table[indices.long().clamp(0, rows - 1)].float()       # (B, K, D)
+    return (take * (indices >= 0)[..., None]).sum(dim=1).to(table.dtype)

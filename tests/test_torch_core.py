@@ -103,3 +103,82 @@ def test_query_tile_bitmaps_identical():
     aj = jcore.query_tile_bitmaps(layout_j, ev)
     at = tcore.query_tile_bitmaps(layout_t, ev)
     assert_same(aj, at, "bitmaps")
+
+
+# ---------------- cost model, dynamic switch, simulator and baselines --
+
+# tests/test_core.py's traces: (rows, queries, mean bag, seed); the first
+# half of each is the history, the second the simulated batch
+SIM_TRACES = [(256, 64, 3.0, 3), (256, 256, 4.0, 4), (512, 256, 8.0, 5)]
+
+
+@pytest.mark.parametrize("pipeline", ["recross", "naive", "frequency", "nmars"])
+@pytest.mark.parametrize("trace", SIM_TRACES)
+def test_baseline_pipelines_bit_identical(pipeline, trace):
+    rows, n, bag, seed = trace
+    qs = jdata.zipf_queries(rows, n, bag, seed=seed)
+    hist, batch = qs[: n // 2], qs[n // 2:]
+    out = []
+    for core in (jcore, tcore):
+        graph = core.build_cooccurrence(hist, rows)
+        if pipeline == "recross":
+            res = core.baselines.recross_pipeline(graph, batch, group_size=16, dim=8,
+                                                  batch_size=len(batch))
+        elif pipeline == "frequency":
+            res = core.baselines.frequency_pipeline(graph, batch, group_size=16, dim=8)
+        else:
+            fn = getattr(core.baselines, f"{pipeline}_pipeline")
+            res = fn(rows, batch, group_size=16, dim=8)
+        out.append(res)
+    assert_same(out[0][0], out[1][0], "layout")
+    assert_same(out[0][1], out[1][1], "report")
+
+
+@pytest.mark.parametrize("trace", SIM_TRACES)
+@pytest.mark.parametrize("dynamic_switching,balance,threshold", [
+    (True, True, 1), (False, True, 1), (True, False, 1), (False, False, 1),
+    (True, True, 2), (True, True, 4),
+])
+def test_simulate_batch_equals_reference_and_jax(trace, dynamic_switching, balance,
+                                                 threshold):
+    from repro.core.simulator import _reference_simulate_batch as j_ref_sim
+    from repro_torch.core.simulator import _reference_simulate_batch as t_ref_sim
+
+    rows, n, bag, seed = trace
+    qs = jdata.zipf_queries(rows, n, bag, seed=seed)
+    hist, batch = qs[: n // 2], qs[n // 2:]
+    layout = _plan(tcore, tdist, rows, hist, 1, group_size=16, batch=len(batch))[3]
+    kw = dict(dynamic_switching=dynamic_switching, balance_replicas=balance,
+              switch_threshold=threshold)
+    port = tcore.simulate_batch(layout, batch, **kw)
+    assert_same(port, t_ref_sim(layout, batch, **kw), "port vs its loop")
+    assert_same(port, jcore.simulate_batch(layout, batch, **kw), "port vs jax")
+    assert_same(port, j_ref_sim(layout, batch, **kw), "port vs jax loop")
+
+
+def test_dynamic_switch_and_cost_model_identical():
+    import torch
+
+    counts = np.random.default_rng(0).integers(0, 9, size=(6, 40))
+    for thr in (1, 2, 4):
+        np.testing.assert_array_equal(tcore.select_mode(counts, threshold=thr),
+                                      jcore.select_mode(counts, threshold=thr))
+        got = tcore.torch_select_mode(torch.from_numpy(counts), threshold=thr)
+        want = np.asarray(jcore.jnp_select_mode(counts, threshold=thr))
+        assert got.dtype == torch.int8
+        np.testing.assert_array_equal(got.numpy(), want)
+        assert tcore.mode_statistics(counts, threshold=thr) == \
+            jcore.mode_statistics(counts, threshold=thr)
+    bits = (np.random.default_rng(1).random((5, 64)) < 0.1).astype(np.uint8)
+    np.testing.assert_array_equal(tcore.popcount(bits), jcore.popcount(bits))
+    assert tcore.energy_breakeven_rows() == jcore.energy_breakeven_rows()
+    assert dataclasses.asdict(tcore.DEFAULT_RERAM) == dataclasses.asdict(jcore.DEFAULT_RERAM)
+    for rows in (1, 2, 7, 64):
+        assert tcore.DEFAULT_RERAM.crossbar_mac_event(rows) == \
+            jcore.DEFAULT_RERAM.crossbar_mac_event(rows)
+        assert tcore.DEFAULT_RERAM.crossbar_static_mac_event(rows) == \
+            jcore.DEFAULT_RERAM.crossbar_static_mac_event(rows)
+        assert tcore.DEFAULT_RERAM.cpu_reduction_event(rows) == \
+            jcore.DEFAULT_RERAM.cpu_reduction_event(rows)
+    assert tcore.DEFAULT_RERAM.crossbar_read_event() == \
+        jcore.DEFAULT_RERAM.crossbar_read_event()

@@ -33,7 +33,12 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
     res = json.loads(proc.stdout.strip().splitlines()[-1])
     assert res["bad"] == []
     for mod in ("repro_torch.serve.sharded", "repro_torch.kernels.crossbar_reduce",
-                "repro_torch.launch.serve_sharded", "repro_torch.convert"):
+                "repro_torch.launch.serve_sharded", "repro_torch.convert",
+                "repro_torch.kernels.embedding_bag", "repro_torch.core.energy",
+                "repro_torch.core.dynamic_switch", "repro_torch.core.simulator",
+                "repro_torch.core.baselines", "repro_torch.models.layers",
+                "repro_torch.models.dlrm", "repro_torch.configs.dlrm_recross",
+                "repro_torch.launch.train_dlrm"):
         assert mod in res["modules"]
 
 
