@@ -5,9 +5,10 @@
 
 Drives the port's main paths — the ReCross sharded embedding server, and
 DLRM forward and SGD training through the crossbar kernel with the
-embedding-bag kernel as the naive datapath — at the full sizes of the
-``dlrm-recross`` model and holds every CUDA kernel of those paths against
-its plain PyTorch version on the card.
+embedding-bag kernel as the naive datapath, at the full sizes of the
+``dlrm-recross`` model; then int8-KV LM decode serving of ``chatglm3-6b``
+FULL through the flash-decode attention kernel — and holds every CUDA
+kernel of those paths against its plain PyTorch version on the card.
 Phases, in order; any failure propagates and the process exits non-zero:
 
 1. device: the card's name and power limit (``nvidia-smi``); TF32 off;
@@ -79,6 +80,19 @@ MAX_BAG = 64                           # dlrm-recross FULL
 TRAIN_STEPS = 20
 LR = 1e-2
 DEVICE = "cuda"
+
+LM_ARCH = "chatglm3-6b"                # FULL: 28 layers, d 4096, 32 q / 2 kv heads
+LM_SLOTS = 8
+LM_MAX_SEQ = 4096
+LM_REQUESTS = 16
+LM_PROMPT = 32
+LM_NEW = 32
+LM_PLAIN_STEPS = 4                     # kernel vs plain version, logits
+LM_QUANT_STEPS = 8                     # int8 vs bf16 cache, logits
+LM_QUANT_TOL = 0.05                    # tests/test_models_numerics.py:141
+LM_PROFILE_STEPS = 4                   # decode steps traced with torch.profiler
+DECODE_32K = (128, 32_768, 2, 16, 128)  # one decode_32k layer: b, S, kvh, g, hd
+DA_TOL = {"m": 1e-5, "l": 1e-4, "out": 1e-4}  # tests/test_decode_kernel.py
 
 
 def log(*parts) -> None:
@@ -595,6 +609,256 @@ def phase_dlrm(torch, np, timer, server, tables, histories) -> dict:
     return out
 
 
+def da_case(torch, gen, b, S, kvh, g, hd, dtype):
+    """Random decode-attention inputs on the card: int8 K/V entries with
+    per-(position, head) scales, as the cache holds them; q and scales in
+    ``dtype``."""
+    q = (4 * torch.randn((b, kvh, g, hd), generator=gen, device=DEVICE)).to(dtype)
+    k_q = torch.randint(-127, 128, (b, S, kvh, hd), generator=gen, device=DEVICE,
+                        dtype=torch.int8)
+    v_q = torch.randint(-127, 128, (b, S, kvh, hd), generator=gen, device=DEVICE,
+                        dtype=torch.int8)
+    k_s = ((torch.rand((b, S, kvh), generator=gen, device=DEVICE) + 0.5) / 127).to(dtype)
+    v_s = ((torch.rand((b, S, kvh), generator=gen, device=DEVICE) + 0.5) / 127).to(dtype)
+    return q, k_q, k_s, v_q, v_s
+
+
+def da_work(q, k_q, k_s, v_q, v_s, length):
+    """Least bytes and operations of one decode-attention call at this
+    length: the int8 rows and scales of the positions the result depends
+    on (all S at length 0, where every weight is 1) read once, q read
+    once, out, m and l written once; 4·g·hd flop a position and row."""
+    b, S, kvh, hd = k_q.shape
+    g = q.shape[2]
+    n = S if length <= 0 else min(length, S)
+    nbytes = (2 * b * n * kvh * (hd + k_s.element_size()) + q.numel() * q.element_size()
+              + 4 * b * kvh * g * (hd + 2) + 4)
+    return nbytes, 4 * b * kvh * g * n * hd
+
+
+def da_parity(torch, name, inputs, length) -> dict:
+    """Decode-attention kernel vs its plain version on the card; raises
+    past the JAX kernel test's tolerances."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import fused_decode_attention_cuda
+
+    ln = torch.tensor(length, dtype=torch.int32, device=DEVICE)
+    S = inputs[1].shape[1]
+    out, m, l = fused_decode_attention_cuda(*inputs, ln, block_s=512 if S % 512 == 0 else S)
+    torch.cuda.synchronize()
+    out_r, m_r, l_r = ref.fused_decode_attention_ref(*inputs, ln)
+    errs = {
+        "m": float((m - m_r).abs().max().item()),
+        "l": float(((l - l_r).abs() / (1 + l_r.abs())).max().item()),
+        "out": float(((out / l[..., None] - out_r / l_r[..., None]).abs()
+                      / (1 + (out_r / l_r[..., None]).abs())).max().item()),
+    }
+    row = {"case": name, "shape": list(inputs[1].shape), "g": inputs[0].shape[2],
+           "dtype": str(inputs[0].dtype).removeprefix("torch."), "length": length,
+           "max_abs_err": float((out / l[..., None] - out_r / l_r[..., None]).abs().max().item()),
+           "errs": errs}
+    bad = {k: v for k, v in errs.items() if not v <= DA_TOL[k]}
+    if bad or out.shape != out_r.shape:
+        raise AssertionError(f"{name}: decode-attention kernel disagrees with its plain "
+                             f"version past {DA_TOL}: {row}")
+    return row
+
+
+def phase_decode_kernel(torch, timer) -> dict:
+    """The flash-decode kernel against its plain version, then one
+    decode_32k layer timed."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import fused_decode_attention_cuda
+
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    shapes = [(1, 256, 1, 1, 128), (2, 1024, 2, 4, 128), (2, 512, 4, 2, 64),
+              (1, 512, 2, 8, 256), (LM_SLOTS, LM_MAX_SEQ, 2, 16, 128)]
+    worst = 0.0
+    for b, S, kvh, g, hd in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            inputs = da_case(torch, gen, b, S, kvh, g, hd, dtype)
+            for length in (0, 1, S // 3 + 7, S):
+                row = da_parity(torch, f"{b}x{S}x{kvh}x{g}x{hd}", inputs, length)
+                worst = max(worst, row["max_abs_err"])
+        log("da-parity", json.dumps(row))
+    log(f"da-parity: 5 shapes x 2 dtypes x 4 lengths passed, max_abs_err (out/l) {worst}")
+
+    # one decode_32k layer, full length, bf16 q and scales (the cache's)
+    b, S, kvh, g, hd = DECODE_32K
+    inputs = da_case(torch, gen, b, S, kvh, g, hd, torch.bfloat16)
+    row = da_parity(torch, "decode_32k", inputs, S)
+    ln = torch.tensor(S, dtype=torch.int32, device=DEVICE)
+    nbytes, flops = da_work(*inputs, S)
+    # the products' inputs are bf16 (q, scales) and int8: on the tensor
+    # cores the same work is bound by bytes; the f32 CUDA-core floor is
+    # reported beside it
+    bound_ms, bound_by = bound(nbytes, flops, "bfloat16")
+    row.update(bytes=nbytes, flops=flops, bound_ms=bound_ms, bound_by=bound_by,
+               f32_ops_ms=flops / PEAK_FLOPS["float32"] * 1e3)
+    row["ms"] = timer.ms(lambda: fused_decode_attention_cuda(*inputs, ln))
+    row["plain_ms"] = timer.ms(lambda: ref.fused_decode_attention_ref(*inputs, ln), reps=5)
+    q, k_q, k_s, v_q, v_s = inputs
+    kb = (k_q.float() * k_s.float()[..., None]).to(torch.bfloat16).transpose(1, 2).contiguous()
+    vb = (v_q.float() * v_s.float()[..., None]).to(torch.bfloat16).transpose(1, 2).contiguous()
+    del k_q, v_q
+
+    def library():  # (b, kvh, g, hd) queries over (b, kvh, S, hd) keys: GQA as a batch
+        return torch.nn.functional.scaled_dot_product_attention(q, kb, vb)
+
+    out, _, l = fused_decode_attention_cuda(*inputs, ln)
+    row["library_max_abs_err"] = float((library().float() - out / l[..., None]).abs().max().item())
+    row["library_ms"] = timer.ms(library)
+    row["library_bytes"] = 2 * kb.numel() * kb.element_size()
+    row["GB_per_s"] = nbytes / row["ms"] / 1e6
+    log("da-32k", json.dumps(row))
+    del inputs, kb, vb, q, k_s, v_s, out, l
+    torch.cuda.empty_cache()
+    return row
+
+
+def lm_logits(torch, np, params, cfg, cache, tokens) -> list:
+    """float32 logits of successive decode steps over ``tokens``."""
+    from repro_torch.serve.decode import decode_step
+
+    out = []
+    for t in range(tokens.shape[0]):
+        logits, _ = decode_step(params, cfg, torch.from_numpy(tokens[t]).to(DEVICE), cache)
+        out.append(logits[:, -1, :cfg.vocab_size].float())
+    return out
+
+
+def profile_decode(torch, params, cfg, cache, steps) -> dict:
+    """``steps`` decode steps under ``torch.profiler``: device time summed
+    over the CUDA kernels, the wall of the window (synchronized), the
+    host's top-level operator calls and the kernels that took the most
+    device time.  The profiler slows the host, so the idle share read
+    here is an upper bound."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serve.decode import decode_step
+
+    tokens = torch.ones((cache["k"].shape[1], 1), dtype=torch.int32, device=DEVICE)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            decode_step(params, cfg, tokens, cache)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    host_ops = sum(1 for e in events
+                   if e.device_type == torch.autograd.DeviceType.CPU and e.cpu_parent is None)
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy_us = sum(by_name.values())
+    out = {"steps": steps, "wall_ms_per_step": wall_us / steps / 1e3,
+           "host_ops_per_step": host_ops / steps,
+           "kernels_per_step": len(kernels) / steps}
+    if kernels:
+        out.update(device_busy_ms_per_step=busy_us / steps / 1e3,
+                   device_idle_share=1.0 - busy_us / wall_us,
+                   top_kernels_ms_per_step={
+                       k[:60]: v / steps / 1e3
+                       for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]})
+    else:
+        out["device_busy_ms_per_step"] = "not measured (no CUDA events in the trace)"
+    return out
+
+
+def phase_lm(torch, np, timer) -> dict:
+    """chatglm3-6b FULL decode with an int8 cache through the kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as kda
+    from repro_torch.kernels import ref
+    from repro_torch.launch import serve as ls
+    from repro_torch.models.layers import count_params, tree_leaves
+    from repro_torch.serve.kvcache import cache_bytes, init_cache
+
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    params, cache = ls.build(cfg, LM_SLOTS, LM_MAX_SEQ, kv_int8=True, device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weight_bytes = sum(x.numel() * x.element_size() for x in tree_leaves(params))
+    log(f"lm: {cfg.name} FULL {count_params(params)} parameters, {weight_bytes} B, "
+        f"drawn in {init_s:.2f} s")
+
+    # checks on fresh caches: kernel vs plain version (4 steps), int8 vs
+    # bf16 cache (8 steps); step 0 has length 0 (the -1e30 sentinel path)
+    tokens = np.random.default_rng(0).integers(
+        1, cfg.vocab_size, size=(LM_QUANT_STEPS, LM_SLOTS, 1)).astype(np.int32)
+    with torch.no_grad():
+        kernel = lm_logits(torch, np, params, cfg, init_cache(
+            cfg, LM_SLOTS, LM_MAX_SEQ, quant=True, device=DEVICE), tokens)
+
+        def plain(q, k_q, k_s, v_q, v_s, length, *, block_s=512):
+            return ref.fused_decode_attention_ref(q, k_q, k_s, v_q, v_s, length)
+
+        with mock.patch.object(kda, "fused_decode_attention_cuda", plain):
+            plain_logits = lm_logits(torch, np, params, cfg, init_cache(
+                cfg, LM_SLOTS, LM_MAX_SEQ, quant=True, device=DEVICE),
+                tokens[:LM_PLAIN_STEPS])
+        bf16 = lm_logits(torch, np, params, cfg, init_cache(
+            cfg, LM_SLOTS, LM_MAX_SEQ, quant=False, device=DEVICE), tokens)
+    kernel_vs_plain = max(float((a - b).abs().max().item())
+                          for a, b in zip(kernel, plain_logits))
+    scale = max(float(x.abs().max().item()) for x in bf16)
+    int8_vs_bf16 = max(float((a - b).abs().max().item()) for a, b in zip(kernel, bf16))
+    finite = all(bool(torch.isfinite(x).all()) for x in kernel + bf16)
+    checks = {"kernel_vs_plain_max_abs": kernel_vs_plain, "kernel_vs_plain_tol": TOL["bfloat16"],
+              "int8_vs_bf16_max_abs": int8_vs_bf16, "bf16_logit_scale": scale,
+              "int8_vs_bf16_tol": LM_QUANT_TOL * max(scale, 1.0), "finite": finite}
+    log("lm-checks", json.dumps(checks))
+    if not (finite and kernel_vs_plain <= TOL["bfloat16"]
+            and int8_vs_bf16 < LM_QUANT_TOL * max(scale, 1.0)):
+        raise AssertionError(f"lm checks failed: {checks}")
+    del kernel, plain_logits, bf16
+
+    # serving through launch.serve's functions, launches counted over it
+    requests = ls.make_requests(cfg, LM_REQUESTS, LM_PROMPT, LM_NEW)
+    kda.fused_decode_attention_cuda.launches = 0
+    with torch.no_grad():
+        report = ls.serve(params, cfg, cache, requests)
+    launches = kda.fused_decode_attention_cuda.launches
+    step_ms = report.pop("step_ms")
+    lengths_ok = all(len(r.generated) == LM_NEW for r in requests)
+    if not (report["completed"] == LM_REQUESTS and lengths_ok
+            and launches == cfg.num_layers * report["steps"]):
+        raise AssertionError(f"lm serving: {report}, launches {launches}")
+
+    # the kernel at the served shape and the cache length serving ended at
+    length = int(cache["len"].item())
+    layer = (cache["k"][0], cache["k_scale"][0], cache["v"][0], cache["v_scale"][0])
+    qg = torch.randn((LM_SLOTS, cfg.kv_heads, cfg.q_per_kv, cfg.resolved_head_dim),
+                     device=DEVICE).to(torch.bfloat16)
+    served = da_parity(torch, "served-layer", (qg, layer[0], layer[1], layer[2], layer[3]),
+                       length)
+    ln = torch.tensor(length, dtype=torch.int32, device=DEVICE)
+    served["ms"] = timer.ms(lambda: kda.fused_decode_attention_cuda(
+        qg, layer[0], layer[1], layer[2], layer[3], ln))
+    nbytes, flops = da_work(qg, *layer, length)
+    served["bound_ms"], served["bound_by"] = bound(nbytes, flops, "bfloat16")
+    log("da-served", json.dumps(served))
+    with torch.no_grad():
+        prof = profile_decode(torch, params, cfg, cache, LM_PROFILE_STEPS)
+    log("lm-profile", json.dumps(prof))
+
+    stats = dict(report)
+    stats.update(
+        arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model, slots=LM_SLOTS,
+        max_seq=LM_MAX_SEQ, prompt=LM_PROMPT, new=LM_NEW, init_s=init_s,
+        weight_bytes=weight_bytes, cache_bytes=cache_bytes(cache),
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        kernel_launches=launches, launches_per_step=launches / report["steps"],
+        final_len=length, step_mean_ms=float(np.mean(step_ms)),
+        step_first_ms=step_ms[0], checks=checks,
+        served_kernel_ms=served["ms"], served_kernel_bound_ms=served["bound_ms"],
+        profile=prof,
+    )
+    log("lm", json.dumps(stats))
+    return stats
+
+
 def kernel_entry(name, source, replaces, launches, row) -> dict:
     return {
         "name": name, "route": "cuda", "source": source,
@@ -631,6 +895,7 @@ def main() -> int:
         built = dict(zip(_build.LIBRARIES, pool.map(_build.build, _build.LIBRARIES)))
     _build.load_crossbar()
     _build.load_embedding_bag()
+    _build.load_decode_attention()
     for name, (path, build_s, build_log) in built.items():
         log(f"build: {path.relative_to(ROOT)} in {build_s:.2f} s")
         log("\n".join(l for l in build_log.splitlines() if "registers" in l or "spill" in l))
@@ -641,6 +906,13 @@ def main() -> int:
     flat = phase_flat(torch, timer, server, tables, streams)
     eb_row = phase_embedding_bag(torch, timer)
     dlrm = phase_dlrm(torch, np, timer, server, tables, histories)
+    # the LM phases start from an empty card: their peak memory is their own
+    del server, tables, streams, histories
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    da_row = phase_decode_kernel(torch, timer)
+    torch.cuda.reset_peak_memory_stats()
+    lm = phase_lm(torch, np, timer)
 
     crossbar_src = "src/repro_torch/kernels/csrc/crossbar_reduce.cu"
     kernels = [
@@ -654,6 +926,10 @@ def main() -> int:
         kernel_entry("embedding_bag", "src/repro_torch/kernels/csrc/embedding_bag.cu",
                      "src/repro/kernels/embedding_bag.py:57",
                      dlrm["embedding_bag_launches"], eb_row),
+        kernel_entry("fused_decode_attention",
+                     "src/repro_torch/kernels/csrc/decode_attention.cu",
+                     "src/repro/kernels/decode_attention.py:94",
+                     lm["kernel_launches"], da_row),
     ]
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -1,1 +1,18 @@
-"""Model configurations of the port (``dlrm_recross``)."""
+"""Model configurations of the port (``dlrm_recross``, ``chatglm3_6b``,
+``stablelm_3b``) and the ``--arch`` registry."""
+
+from repro_torch.configs.base import (
+    ARCH_IDS,
+    SHAPES,
+    ModelConfig,
+    MoEConfig,
+    ShapeConfig,
+    get_config,
+    list_configs,
+    supported_shapes,
+)
+
+__all__ = [
+    "ARCH_IDS", "SHAPES", "ModelConfig", "MoEConfig", "ShapeConfig",
+    "get_config", "list_configs", "supported_shapes",
+]

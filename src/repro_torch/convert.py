@@ -15,12 +15,15 @@ import torch
 
 
 def _tensor(a: np.ndarray, device) -> torch.Tensor:
-    a = np.ascontiguousarray(a)
+    shape = np.shape(a)
+    a = np.ascontiguousarray(a)  # (1,) for a 0-d array: the shape is put back below
     if not a.flags.writeable:  # e.g. np.asarray of a jax.Array
         a = a.copy()
     if a.dtype.name == "bfloat16":
-        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(device)
-    return torch.from_numpy(a).to(device)
+        t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.reshape(shape).to(device)
 
 
 def tables_from_numpy(
@@ -41,6 +44,15 @@ def shard_images_from_numpy(images: np.ndarray, device="cuda") -> torch.Tensor:
     return _tensor(np.asarray(images), device)
 
 
+def _tree(tree, device):
+    """Nested dicts/lists of host arrays → the same structure of tensors."""
+    if isinstance(tree, dict):
+        return {k: _tree(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree(v, device) for v in tree]
+    return _tensor(np.asarray(tree), device)
+
+
 def dlrm_params_from_numpy(params, device="cuda"):
     """JAX ``init_dlrm``'s tree of host arrays → the port's DLRM parameters.
 
@@ -49,8 +61,18 @@ def dlrm_params_from_numpy(params, device="cuda"):
     a dense ``w`` stays ``(d_in, d_out)`` (both packages compute
     ``x @ w + b``), so no transpose is made.
     """
-    if isinstance(params, dict):
-        return {k: dlrm_params_from_numpy(v, device) for k, v in params.items()}
-    if isinstance(params, (list, tuple)):
-        return [dlrm_params_from_numpy(v, device) for v in params]
-    return _tensor(np.asarray(params), device)
+    return _tree(params, device)
+
+
+def lm_params_from_numpy(params, device="cuda"):
+    """JAX ``init_lm``'s tree of host arrays → the port's LM parameters,
+    bit for bit: the same nested dicts, layer parameters stacked on the
+    leading ``L`` axis, dense weights ``(d_in, d_out)``."""
+    return _tree(params, device)
+
+
+def cache_from_numpy(cache, device="cuda"):
+    """JAX ``init_cache``'s dict of host arrays (``k``, ``v``; int8 with
+    bf16 ``k_scale``/``v_scale`` when quantized; the 0-d int32 ``len``)
+    → the port's cache."""
+    return _tree(cache, device)

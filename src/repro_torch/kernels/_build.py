@@ -29,7 +29,11 @@ NVCC_FLAGS = [
 ]
 
 #: library name → source file under csrc/
-LIBRARIES = {"crossbar": "crossbar_reduce.cu", "embedding_bag": "embedding_bag.cu"}
+LIBRARIES = {
+    "crossbar": "crossbar_reduce.cu",
+    "embedding_bag": "embedding_bag.cu",
+    "decode_attention": "decode_attention.cu",
+}
 
 
 def nvcc_path() -> str:
@@ -104,4 +108,26 @@ def load_embedding_bag() -> ctypes.CDLL:
     lib.embedding_bag_launch.restype = ctypes.c_int
     lib.embedding_bag_error_string.argtypes = [ctypes.c_int]
     lib.embedding_bag_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def load_decode_attention() -> ctypes.CDLL:
+    """The int8 flash-decode attention library, built on first call, with
+    its C signatures declared (every pointer and the stream as
+    ``c_void_p``, the softmax scale as ``c_float``)."""
+    path, _, _ = build("decode_attention")
+    lib = ctypes.CDLL(str(path))
+    lib.decode_attention_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_int,                       # q, q dtype
+        ctypes.c_void_p, ctypes.c_void_p,                    # k_q, k_s
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,      # v_q, v_s, scale dtype
+        ctypes.c_void_p,                                     # length (device int32)
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # out, m, l
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, ctypes.c_void_p,
+    ]
+    lib.decode_attention_launch.restype = ctypes.c_int
+    lib.decode_attention_error_string.argtypes = [ctypes.c_int]
+    lib.decode_attention_error_string.restype = ctypes.c_char_p
     return lib

@@ -55,3 +55,27 @@ def embedding_bag_ref(
     rows = table.shape[0]
     take = table[indices.long().clamp(0, rows - 1)].float()       # (B, K, D)
     return (take * (indices >= 0)[..., None]).sum(dim=1).to(table.dtype)
+
+
+def fused_decode_attention_ref(q, k_q, k_s, v_q, v_s, length):
+    """Cache half of one decode step's attention over an int8 K/V cache:
+    dequantize the whole cache and run a masked softmax in one shot.
+
+    q (b, kvh, g, hd); k_q, v_q (b, S, kvh, hd) int8; k_s, v_s (b, S, kvh);
+    length a 0-d int tensor (positions ``>= length`` are masked to -1e30,
+    never -inf, so ``length = 0`` gives ``m = -1e30``, ``l = S`` and
+    ``out = Σ v``).  Returns the unnormalized ``out`` (b, kvh, g, hd) f32,
+    the row max ``m`` and the denominator ``l`` (b, kvh, g) f32.
+    """
+    b, S, kvh, hd = k_q.shape
+    k = k_q.float() * k_s.float()[..., None]
+    v = v_q.float() * v_s.float()[..., None]
+    scale = 1.0 / (hd ** 0.5)
+    s = torch.einsum("bkgd,btkd->bkgt", q.float(), k) * scale
+    mask = torch.arange(S, device=k_q.device)[None, None, None, :] < length
+    s = torch.where(mask, s, torch.full_like(s, -1e30))
+    m = s.amax(dim=-1)
+    w = torch.exp(s - m[..., None])
+    l = w.sum(dim=-1)
+    out = torch.einsum("bkgt,btkd->bkgd", w, v)
+    return out, m, l

@@ -1,4 +1,6 @@
-"""Models of the port: DLRM with a ReCross-mapped embedding layer."""
+"""Models of the port: DLRM with a ReCross-mapped embedding layer, and
+the dense decoder LM's parameters, RoPE and decode attention
+(``transformer``, ``rope``, ``attention``) that LM decode serving uses."""
 
 from repro_torch.models.dlrm import (
     DLRMConfig,

@@ -1,0 +1,186 @@
+"""GQA attention for one-token decode, over bf16 and int8 KV caches.
+
+The port of the decode half of ``repro.models.attention``.  Layouts are
+JAX's: activations ``(b, s, d_model)``, Q/K/V ``(b, s, heads, head_dim)``,
+a layer's cache ``(b, max_seq, kv_heads, head_dim)``; GQA groups query
+heads by einsum reshape, with no repeated K/V.  The cache length is a
+0-d int32 tensor on the cache's device and is never read on the host.
+
+``decode_attention_readonly`` with ``kv_scale`` (an int8 cache) computes
+the cache half of the attention with the CUDA flash-decode kernel
+(:func:`repro_torch.kernels.decode_attention.fused_decode_attention_cuda`,
+the plain version on CPU tensors) and merges the new token's own score
+into its ``(out, m, l)`` in plain torch.  The bf16 branch stays plain
+torch, as in JAX.  Still to port: ``self_attention``,
+``chunked_self_attention`` and the cross-attention functions.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import decode_attention as kda
+from repro_torch.models.layers import Params, dense_init
+from repro_torch.models.rope import apply_rope
+
+_KERNEL_BLOCK_S = 512  # the TPU kernel's default S tile, checked by the wrapper
+
+
+def init_attention(generator: torch.Generator, d_model, num_heads, kv_heads, head_dim,
+                   dtype, *, use_bias=False) -> Params:
+    p = {
+        "wq": dense_init(generator, d_model, num_heads * head_dim, dtype),
+        "wk": dense_init(generator, d_model, kv_heads * head_dim, dtype),
+        "wv": dense_init(generator, d_model, kv_heads * head_dim, dtype),
+        "wo": dense_init(generator, num_heads * head_dim, d_model, dtype, scale=0.5),
+    }
+    if use_bias:
+        device = generator.device
+        p["bq"] = torch.zeros((num_heads * head_dim,), dtype=dtype, device=device)
+        p["bk"] = torch.zeros((kv_heads * head_dim,), dtype=dtype, device=device)
+        p["bv"] = torch.zeros((kv_heads * head_dim,), dtype=dtype, device=device)
+    return p
+
+
+def _project(p, x, num_heads, kv_heads, head_dim):
+    b, s, _ = x.shape
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if "bq" in p:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    return (
+        q.reshape(b, s, num_heads, head_dim),
+        k.reshape(b, s, kv_heads, head_dim),
+        v.reshape(b, s, kv_heads, head_dim),
+    )
+
+
+def _gqa_scores(q, k):
+    """q: (b,s,H,d), k: (b,t,Hkv,d) → scores (b, Hkv, q_per_kv, s, t)."""
+    b, s, H, d = q.shape
+    kvh = k.shape[2]
+    qg = q.reshape(b, s, kvh, H // kvh, d)
+    return torch.einsum("bskgd,btkd->bkgst", qg, k)
+
+
+def _gqa_out(attn, v):
+    """attn: (b,Hkv,g,s,t), v: (b,t,Hkv,d) → (b,s,H*d)."""
+    b, kvh, g, s, t = attn.shape
+    out = torch.einsum("bkgst,btkd->bskgd", attn, v)
+    return out.reshape(b, s, kvh * g * v.shape[-1])
+
+
+def _new_qkv(p, x, cache_len, num_heads, kv_heads, head_dim, rope_theta, rope_partial):
+    b = x.shape[0]
+    pos = cache_len.to(torch.int32).expand(b, 1)
+    q, k, v = _project(p, x, num_heads, kv_heads, head_dim)
+    q = apply_rope(q, pos, theta=rope_theta, partial=rope_partial)
+    k = apply_rope(k, pos, theta=rope_theta, partial=rope_partial)
+    return q, k, v
+
+
+def write_at(cache: torch.Tensor, dim: int, cache_len: torch.Tensor,
+             value: torch.Tensor) -> None:
+    """Writes ``value`` (extent 1 along ``dim``) into ``cache`` at position
+    ``cache_len``, in place (JAX's ``dynamic_update_slice`` builds a new
+    array).  The position stays on the device.  Where JAX clamps a write
+    past the end silently, this raises: an ``IndexError`` on the CPU, a
+    device-side bounds assertion on the card."""
+    cache.index_copy_(dim, cache_len.reshape(1).long(), value)
+
+
+def decode_attention(
+    p: Params,
+    x: torch.Tensor,                 # (b, 1, d_model) — one new token
+    k_cache: torch.Tensor,           # (b, max_seq, kv_heads, head_dim)
+    v_cache: torch.Tensor,
+    cache_len: torch.Tensor,         # 0-d int32 — tokens already cached
+    *,
+    num_heads: int,
+    kv_heads: int,
+    head_dim: int,
+    rope_theta: float = 10_000.0,
+    rope_partial: bool = False,
+):
+    """One decode step: write K/V at ``cache_len`` (in place), attend over
+    the valid prefix.  Returns ``(out (b,1,d_model), k_cache, v_cache)``."""
+    q, k, v = _new_qkv(p, x, cache_len, num_heads, kv_heads, head_dim,
+                       rope_theta, rope_partial)
+    write_at(k_cache, 1, cache_len, k)
+    write_at(v_cache, 1, cache_len, v)
+
+    scores = _gqa_scores(q, k_cache).float() / math.sqrt(head_dim)
+    pos = torch.arange(k_cache.shape[1], device=k_cache.device)
+    valid = (pos <= cache_len)[None, None, None, None, :]
+    scores = torch.where(valid, scores, torch.full_like(scores, -1e30))
+    attn = torch.softmax(scores, dim=-1).to(x.dtype)
+    out = _gqa_out(attn, v_cache) @ p["wo"]
+    return out, k_cache, v_cache
+
+
+def decode_attention_readonly(
+    p: Params,
+    x: torch.Tensor,                 # (b, 1, d_model) — one new token
+    k_cache: torch.Tensor,           # (b, max_seq, kv_heads, head_dim) READ-ONLY
+    v_cache: torch.Tensor,
+    cache_len: torch.Tensor,         # 0-d int32
+    *,
+    num_heads: int,
+    kv_heads: int,
+    head_dim: int,
+    rope_theta: float = 10_000.0,
+    rope_partial: bool = False,
+    kv_scale: Optional[tuple] = None,  # (k_scale, v_scale) (b, max_seq, kvh) for int8 caches
+):
+    """Decode WITHOUT writing the cache: attends over the valid prefix plus
+    the new token's own K/V and returns ``(out, k_new, v_new)``, so the
+    caller writes every layer's new K/V in one batched update.
+
+    With ``kv_scale`` (an int8 cache) the cache half runs through the
+    flash-decode kernel, which returns its unnormalized ``acc`` with row
+    max ``m_c`` and denominator ``l``; the new token's score ``s_n`` is
+    merged as ``m = max(m_c, s_n)``, ``out = (acc·e^(m_c−m) + e^(s_n−m)·
+    v_new) / (l·e^(m_c−m) + e^(s_n−m))``.  ``k_new``/``v_new`` are
+    returned unquantized.
+    """
+    b = x.shape[0]
+    q, k, v = _new_qkv(p, x, cache_len, num_heads, kv_heads, head_dim,
+                       rope_theta, rope_partial)
+    scores_n = _gqa_scores(q, k).float() / math.sqrt(head_dim)   # (b,kvh,g,1,1)
+
+    if kv_scale is None:
+        scores_c = _gqa_scores(q, k_cache).float() / math.sqrt(head_dim)
+        pos = torch.arange(k_cache.shape[1], device=k_cache.device)
+        valid = (pos < cache_len)[None, None, None, None, :]
+        scores_c = torch.where(valid, scores_c, torch.full_like(scores_c, -1e30))
+        m = torch.maximum(scores_c.amax(dim=-1, keepdim=True), scores_n)
+        wc = torch.exp(scores_c - m)
+        wn = torch.exp(scores_n - m)
+        denom = wc.sum(dim=-1, keepdim=True) + wn
+        out = (
+            _gqa_out((wc / denom).to(x.dtype), v_cache)
+            + _gqa_out((wn / denom).to(x.dtype), v)
+        ) @ p["wo"]
+        return out, k, v
+
+    ks, vs = kv_scale
+    g = num_heads // kv_heads
+    qg = q.reshape(b, kv_heads, g, head_dim)                  # s = 1
+    acc, m_c, l_c = kda.fused_decode_attention_cuda(
+        qg.contiguous(), k_cache, ks, v_cache, vs, cache_len.to(torch.int32),
+        block_s=math.gcd(k_cache.shape[1], _KERNEL_BLOCK_S),
+    )
+    s_n = scores_n.reshape(b, kv_heads, g)
+    m = torch.maximum(m_c, s_n)
+    corr = torch.exp(m_c - m)
+    wn = torch.exp(s_n - m)
+    v_n = v.float().reshape(b, kv_heads, 1, head_dim)
+    num = acc * corr[..., None] + wn[..., None] * v_n
+    den = l_c * corr + wn
+    o = (num / den[..., None]).to(x.dtype)                     # (b,kvh,g,hd)
+    out = o.reshape(b, 1, num_heads * head_dim) @ p["wo"]
+    return out, k, v

@@ -1,0 +1,139 @@
+"""The int8 flash-decode attention of the port against the JAX package, on
+the CPU.
+
+* ``repro_torch.kernels.ref.fused_decode_attention_ref`` against JAX's
+  ``fused_decode_attention_ref`` at ``tests/test_decode_kernel.py``'s four
+  shapes, lengths 0, 1 and ragged, f32 and bf16 scales;
+* the wrapper ``fused_decode_attention_cuda`` on CPU tensors (its plain
+  version) against ``fused_decode_attention_pallas`` in interpret mode, at
+  two small shapes (interpret mode is slow);
+* the wrapper's contract errors and its launch count on the CPU.
+
+Tolerances are the JAX kernel test's: ``m`` atol 1e-5; ``l`` and
+``out / l`` rtol 1e-4, atol 1e-4 (both sides f32, summed in other orders).
+The CUDA kernel itself is held against the plain version on the card by
+``chip_smoke.py``.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import fused_decode_attention_pallas
+from repro.kernels import fused_decode_attention_ref as j_ref
+from repro_torch.convert import _tensor
+from repro_torch.kernels import fused_decode_attention_cuda, fused_decode_attention_ref
+
+SHAPES = [  # (b, S, kvh, g, hd, block_s): tests/test_decode_kernel.py's
+    (1, 256, 1, 1, 128, 128),
+    (2, 1024, 2, 4, 128, 256),
+    (2, 512, 4, 2, 64, 128),
+    (1, 512, 2, 8, 256, 512),
+]
+
+
+def _case(b, S, kvh, g, hd, seed, scale_dtype=np.float32):
+    """tests/test_decode_kernel.py's inputs as host arrays; scales cast to
+    ``scale_dtype`` (bf16 as the cache stores them)."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(b, kvh, g, hd)).astype(np.float32)
+    k = rng.normal(size=(b, S, kvh, hd)).astype(np.float32)
+    v = rng.normal(size=(b, S, kvh, hd)).astype(np.float32)
+    k_s = (np.abs(k).max(-1) / 127 + 1e-8).astype(np.float32)
+    v_s = (np.abs(v).max(-1) / 127 + 1e-8).astype(np.float32)
+    k_q = np.round(k / k_s[..., None]).astype(np.int8)
+    v_q = np.round(v / v_s[..., None]).astype(np.int8)
+    if scale_dtype != np.float32:
+        k_s = np.asarray(jnp.asarray(k_s, jnp.bfloat16))
+        v_s = np.asarray(jnp.asarray(v_s, jnp.bfloat16))
+    return q, k_q, k_s, v_q, v_s
+
+
+def _both(arrays, length):
+    jx = [jnp.asarray(a) for a in arrays] + [jnp.asarray(length, jnp.int32)]
+    tt = [_tensor(a, "cpu") for a in arrays] + [torch.tensor(length, dtype=torch.int32)]
+    return jx, tt
+
+
+def _check(got, want):
+    out_t, m_t, l_t = (np.asarray(x, np.float32) for x in got)
+    out_j, m_j, l_j = (np.asarray(x, np.float32) for x in want)
+    np.testing.assert_allclose(m_t, m_j, atol=1e-5)
+    np.testing.assert_allclose(l_t, l_j, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(out_t / l_t[..., None], out_j / l_j[..., None],
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("scales", ["f32", "bf16"])
+@pytest.mark.parametrize("which", ["zero", "one", "ragged"])
+@pytest.mark.parametrize("b,S,kvh,g,hd,block_s", SHAPES)
+def test_ref_matches_jax_ref(b, S, kvh, g, hd, block_s, which, scales):
+    length = {"zero": 0, "one": 1, "ragged": S // 3 + 7}[which]
+    arrays = _case(b, S, kvh, g, hd, seed=S + hd,
+                   scale_dtype=np.float32 if scales == "f32" else jnp.bfloat16)
+    jx, tt = _both(arrays, length)
+    got = fused_decode_attention_ref(*tt)
+    assert all(x.dtype == torch.float32 for x in got)
+    assert got[0].shape == (b, kvh, g, hd) and got[1].shape == got[2].shape == (b, kvh, g)
+    _check([x.numpy() for x in got], j_ref(*jx))
+
+
+def test_ref_length_zero_is_every_weight_one():
+    """length 0: m = -1e30, l = S and out = Σ v (the sentinel, never -inf)."""
+    b, S, kvh, g, hd = 1, 64, 2, 2, 16
+    q, k_q, k_s, v_q, v_s = _case(b, S, kvh, g, hd, seed=5)
+    _, tt = _both((q, k_q, k_s, v_q, v_s), 0)
+    out, m, l = fused_decode_attention_ref(*tt)
+    assert torch.all(m == -1e30)
+    assert torch.all(l == S)
+    v = v_q.astype(np.float32) * v_s[..., None]
+    np.testing.assert_allclose(out.numpy(), np.broadcast_to(
+        v.sum(1)[:, :, None, :], (b, kvh, g, hd)), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("b,S,kvh,g,hd,block_s,length", [
+    (1, 256, 1, 1, 128, 128, 100),
+    (2, 256, 2, 4, 64, 128, 256),
+])
+def test_wrapper_on_cpu_matches_pallas_interpret(b, S, kvh, g, hd, block_s, length):
+    arrays = _case(b, S, kvh, g, hd, seed=S + hd)
+    jx, tt = _both(arrays, length)
+    before = fused_decode_attention_cuda.launches
+    got = fused_decode_attention_cuda(*tt, block_s=block_s)
+    assert fused_decode_attention_cuda.launches == before  # the plain version ran
+    want = fused_decode_attention_pallas(*jx, block_s=block_s, interpret=True)
+    _check([x.numpy() for x in got], want)
+
+
+def _tensors(b=1, S=256, kvh=2, g=2, hd=64, length=10):
+    return _both(_case(b, S, kvh, g, hd, seed=1), length)[1]
+
+
+@pytest.mark.parametrize("mutate,err", [
+    (lambda t: t.__setitem__(0, t[0][0]), ValueError),                       # q not 4-D
+    (lambda t: t.__setitem__(1, t[1][:, :128]), ValueError),                 # k_q S ≠ v_q S
+    (lambda t: t.__setitem__(2, t[2][..., :1]), ValueError),                 # scale shape
+    (lambda t: t.__setitem__(5, torch.tensor([1, 2], dtype=torch.int32)), ValueError),
+])
+def test_wrapper_rejects_bad_shapes(mutate, err):
+    tt = _tensors()
+    mutate(tt)
+    with pytest.raises(err):
+        fused_decode_attention_cuda(*tt)
+
+
+def test_wrapper_checks_block_s_as_the_reference_does():
+    tt = _tensors(S=384)
+    with pytest.raises(ValueError, match="block_s"):
+        fused_decode_attention_cuda(*tt)                 # 384 % 512
+    out, m, l = fused_decode_attention_cuda(*tt, block_s=128)
+    assert out.shape == (1, 2, 2, 64)
+
+
+def test_wrapper_refuses_a_device_that_is_neither_cpu_nor_cuda():
+    tt = [t.to("meta") for t in _tensors()]
+    before = fused_decode_attention_cuda.launches
+    with pytest.raises(ValueError, match="CUDA device"):
+        fused_decode_attention_cuda(*tt, block_s=256)
+    assert fused_decode_attention_cuda.launches == before

@@ -13,13 +13,15 @@ PORT = os.path.join(ROOT, "src", "repro_torch")
 _PROBE = r"""
 import importlib, json, pkgutil, sys
 import repro_torch
+import repro_torch.serve
+serve_pulls_decode = "repro_torch.serve.decode" in sys.modules
 mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
 for m in mods:
     importlib.import_module(m)
 import chip_smoke  # module level only: main() is not run
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro" or m.startswith("repro."))
-print(json.dumps({"modules": mods, "bad": bad}))
+print(json.dumps({"modules": mods, "bad": bad, "serve_pulls_decode": serve_pulls_decode}))
 """
 
 
@@ -32,13 +34,19 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
     assert proc.returncode == 0, proc.stderr
     res = json.loads(proc.stdout.strip().splitlines()[-1])
     assert res["bad"] == []
+    assert res["serve_pulls_decode"] is False
     for mod in ("repro_torch.serve.sharded", "repro_torch.kernels.crossbar_reduce",
                 "repro_torch.launch.serve_sharded", "repro_torch.convert",
                 "repro_torch.kernels.embedding_bag", "repro_torch.core.energy",
                 "repro_torch.core.dynamic_switch", "repro_torch.core.simulator",
                 "repro_torch.core.baselines", "repro_torch.models.layers",
                 "repro_torch.models.dlrm", "repro_torch.configs.dlrm_recross",
-                "repro_torch.launch.train_dlrm"):
+                "repro_torch.launch.train_dlrm", "repro_torch.configs.base",
+                "repro_torch.configs.chatglm3_6b", "repro_torch.configs.stablelm_3b",
+                "repro_torch.models.rope", "repro_torch.models.attention",
+                "repro_torch.models.transformer", "repro_torch.kernels.decode_attention",
+                "repro_torch.serve.kvcache", "repro_torch.serve.decode",
+                "repro_torch.serve.batching", "repro_torch.launch.serve"):
         assert mod in res["modules"]
 
 
