@@ -636,15 +636,17 @@ def da_work(q, k_q, k_s, v_q, v_s, length):
     return nbytes, 4 * b * kvh * g * n * hd
 
 
-def da_parity(torch, name, inputs, length) -> dict:
+def da_parity(torch, name, inputs, length, n_split=None) -> dict:
     """Decode-attention kernel vs its plain version on the card; raises
-    past the JAX kernel test's tolerances."""
+    past the JAX kernel test's tolerances.  ``n_split`` forces the
+    kernel's S splits (``None``: the wrapper's host rule)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import fused_decode_attention_cuda
 
     ln = torch.tensor(length, dtype=torch.int32, device=DEVICE)
     S = inputs[1].shape[1]
-    out, m, l = fused_decode_attention_cuda(*inputs, ln, block_s=512 if S % 512 == 0 else S)
+    out, m, l = fused_decode_attention_cuda(*inputs, ln, block_s=512 if S % 512 == 0 else S,
+                                            n_split=n_split)
     torch.cuda.synchronize()
     out_r, m_r, l_r = ref.fused_decode_attention_ref(*inputs, ln)
     errs = {
@@ -655,6 +657,7 @@ def da_parity(torch, name, inputs, length) -> dict:
     }
     row = {"case": name, "shape": list(inputs[1].shape), "g": inputs[0].shape[2],
            "dtype": str(inputs[0].dtype).removeprefix("torch."), "length": length,
+           "n_split": n_split,
            "max_abs_err": float((out / l[..., None] - out_r / l_r[..., None]).abs().max().item()),
            "errs": errs}
     bad = {k: v for k, v in errs.items() if not v <= DA_TOL[k]}

@@ -115,7 +115,8 @@ def load_embedding_bag() -> ctypes.CDLL:
 def load_decode_attention() -> ctypes.CDLL:
     """The int8 flash-decode attention library, built on first call, with
     its C signatures declared (every pointer and the stream as
-    ``c_void_p``, the softmax scale as ``c_float``)."""
+    ``c_void_p``, the softmax scale as ``c_float``) and the card's SM
+    count, which the split rule reads."""
     path, _, _ = build("decode_attention")
     lib = ctypes.CDLL(str(path))
     lib.decode_attention_launch.argtypes = [
@@ -124,10 +125,14 @@ def load_decode_attention() -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,      # v_q, v_s, scale dtype
         ctypes.c_void_p,                                     # length (device int32)
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # out, m, l
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,   # split partials: out, m, l
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int,                                        # n_split
         ctypes.c_float, ctypes.c_void_p,
     ]
     lib.decode_attention_launch.restype = ctypes.c_int
+    lib.decode_attention_sm_count.argtypes = [ctypes.c_int]
+    lib.decode_attention_sm_count.restype = ctypes.c_int
     lib.decode_attention_error_string.argtypes = [ctypes.c_int]
     lib.decode_attention_error_string.restype = ctypes.c_char_p
     return lib

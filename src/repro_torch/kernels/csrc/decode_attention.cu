@@ -37,15 +37,19 @@
 // of the chunk's positions (weights read as float4 along t).  The next
 // chunk's int8 rows are fetched into registers (16-byte loads, a row's
 // lanes on neighbouring addresses) while the current chunk computes.
-// Moving the products to tensor cores (int8 or bf16 mma) and splitting S
-// across blocks are later work.
+// Moving the products to tensor cores (int8 or bf16 mma) is later work.
 //
-// Grid: (kvh, b), one block per (b, h) looping over S in chunks of kT =
-// 64 positions: the TPU grid's sequential "arbitrary" S axis with its
-// VMEM carries (m, l, acc) becomes this loop with m and l in shared
-// memory and acc in registers.  256 threads; the block holds kG = 16
-// query rows (rows past g are zero and never written), hd in {16, 32, 64,
-// 128, 256}.  Dynamic shared memory: 79 KB at hd = 128, 149 KB at 256.
+// Grid: (kvh, b, n_split).  The block of split i takes chunks [i * per,
+// (i + 1) * per) of the ceil(visit / kT) chunks that the device-side
+// length needs (per = ceil(n_chunks / n_split); an empty range writes
+// nothing) and loops over them in chunks of kT = 64 positions: the TPU
+// grid's sequential "arbitrary" S axis with its VMEM carries (m, l, acc)
+// becomes this loop with m and l in shared memory and acc in registers.
+// With n_split > 1 each split writes a partial (out, m, l) and
+// decode_attention_merge_kernel combines them in a fixed order.  256
+// threads; the block holds kG = 16 query rows (rows past g are zero and
+// never written), hd in {16, 32, 64, 128, 256}.  Dynamic shared memory:
+// 79 KB at hd = 128, 149 KB at 256.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -58,6 +62,7 @@ constexpr int kT = 64;       // cache positions per chunk
 constexpr int kG = 16;       // query rows a block holds (g <= kG)
 constexpr int kRows = 4;     // query rows per thread in both products
 constexpr float kMasked = -1e30f;
+constexpr int kMergeThreads = 128;
 
 static_assert(kT == 64, "the softmax step maps a chunk onto 2 x 32 lanes");
 static_assert((kThreads / 32) * 2 == kG, "one warp per 2 rows in the softmax");
@@ -105,8 +110,8 @@ decode_attention_kernel(const void* __restrict__ q, int q_bf16,
                         const int8_t* __restrict__ v_q, const void* __restrict__ v_s,
                         int s_bf16, const int32_t* __restrict__ length,
                         float* __restrict__ out, float* __restrict__ m_out,
-                        float* __restrict__ l_out, int S, int kvh, int g,
-                        float scale) {
+                        float* __restrict__ l_out, int b_count, int S, int kvh, int g,
+                        int n_split, float scale) {
   static_assert(HD >= 16 && HD <= 256 && kThreads % HD == 0, "head dim");
   using L = Layout<HD>;
   constexpr int kVecRow = HD / 16;                 // 16-byte vectors per cache row
@@ -131,7 +136,19 @@ decode_attention_kernel(const void* __restrict__ q, int q_bf16,
   const int tid = threadIdx.x;
   const int h = blockIdx.x;
   const int b = blockIdx.y;
+  const int split = blockIdx.z;
   const int64_t bh = (int64_t)b * kvh + h;
+  // this split's partial (out, m, l): [split][b][h][row]
+  const int64_t sbh = ((int64_t)split * b_count + b) * kvh + h;
+
+  const int len = *length;
+  // length <= 0: every position is masked and every one carries weight 1
+  const int visit = len <= 0 ? S : min(len, S);
+  const int n_chunks = (visit + kT - 1) / kT;
+  const int per = (n_chunks + n_split - 1) / n_split;
+  const int c_begin = split * per;
+  const int c_end = min(c_begin + per, n_chunks);
+  if (c_begin >= c_end) return;  // an empty split writes nothing
 
   for (int i = tid; i < kG * HD; i += kThreads) {
     const int r = i / HD;
@@ -141,11 +158,6 @@ decode_attention_kernel(const void* __restrict__ q, int q_bf16,
     m_s[tid] = kMasked;
     l_s[tid] = 0.f;
   }
-
-  const int len = *length;
-  // length <= 0: every position is masked and every one carries weight 1
-  const int visit = len <= 0 ? S : min(len, S);
-  const int n_chunks = (visit + kT - 1) / kT;
 
   int4 k_reg[kPer], v_reg[kPer];
   float ks_reg[kPer], vs_reg[kPer];
@@ -199,11 +211,11 @@ decode_attention_kernel(const void* __restrict__ q, int q_bf16,
 #pragma unroll
   for (int r = 0; r < kRows; ++r) acc[r] = make_float4(0.f, 0.f, 0.f, 0.f);
 
-  fetch(0);
-  for (int c = 0; c < n_chunks; ++c) {
+  fetch(c_begin);
+  for (int c = c_begin; c < c_end; ++c) {
     __syncthreads();  // the previous chunk's PV is done with K, V and weights
     stage();
-    if (c + 1 < n_chunks) fetch(c + 1);
+    if (c + 1 < c_end) fetch(c + 1);
     __syncthreads();
 
     {  // scores: rows qk_r0..+3 at position t of the chunk
@@ -320,31 +332,87 @@ decode_attention_kernel(const void* __restrict__ q, int q_bf16,
     for (int r = 0; r < kRows; ++r) {
       const int row = pv_r0 + r;
       if (row < g)
-        *reinterpret_cast<float4*>(out + (bh * g + row) * HD + pv_c) = acc[r];
+        *reinterpret_cast<float4*>(out + (sbh * g + row) * HD + pv_c) = acc[r];
     }
   }
   if (tid < g) {
-    m_out[bh * g + tid] = m_s[tid];
-    l_out[bh * g + tid] = l_s[tid];
+    m_out[sbh * g + tid] = m_s[tid];
+    l_out[sbh * g + tid] = l_s[tid];
+  }
+}
+
+// Merges the splits' partials of one (b, h) in a fixed order, split 0
+// first: M = max m_i, l = sum l_i exp(m_i - M), out = sum out_i exp(m_i - M).
+// It recomputes from length which splits did work, as the split kernel
+// decided it, so empty splits (never written) are never read.
+__global__ void __launch_bounds__(kMergeThreads)
+decode_attention_merge_kernel(const float* __restrict__ out_p, const float* __restrict__ m_p,
+                              const float* __restrict__ l_p, const int32_t* __restrict__ length,
+                              float* __restrict__ out, float* __restrict__ m_out,
+                              float* __restrict__ l_out, int b_count, int S, int kvh,
+                              int g, int hd, int n_split) {
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int64_t bh = (int64_t)b * kvh + h;
+  const int64_t stride = (int64_t)b_count * kvh * g;  // one split's (m, l)
+  const int len = *length;
+  const int visit = len <= 0 ? S : min(len, S);
+  const int n_chunks = (visit + kT - 1) / kT;
+  const int per = (n_chunks + n_split - 1) / n_split;
+  const int n_work = (n_chunks + per - 1) / per;
+  const int cols4 = hd / 4;
+  for (int i = threadIdx.x; i < g * cols4; i += kMergeThreads) {
+    const int r = i / cols4;
+    const int c = (i % cols4) * 4;
+    const int64_t row = bh * g + r;
+    float mx = m_p[row];
+    for (int s = 1; s < n_work; ++s) mx = fmaxf(mx, m_p[s * stride + row]);
+    float l = 0.f;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int s = 0; s < n_work; ++s) {
+      const float corr = expf(m_p[s * stride + row] - mx);
+      l += l_p[s * stride + row] * corr;
+      const float4 o = *reinterpret_cast<const float4*>(out_p + (s * stride + row) * hd + c);
+      acc.x += o.x * corr;
+      acc.y += o.y * corr;
+      acc.z += o.z * corr;
+      acc.w += o.w * corr;
+    }
+    *reinterpret_cast<float4*>(out + row * hd + c) = acc;
+    if (c == 0) {
+      m_out[row] = mx;
+      l_out[row] = l;
+    }
   }
 }
 
 template <int HD>
 cudaError_t launch(const void* q, int q_bf16, const void* k_q, const void* k_s,
                    const void* v_q, const void* v_s, int s_bf16,
-                   const void* length, void* out, void* m, void* l, int b,
-                   int S, int kvh, int g, float scale, cudaStream_t stream) {
+                   const void* length, void* out, void* m, void* l, void* ws_out,
+                   void* ws_m, void* ws_l, int b, int S, int kvh, int g,
+                   int n_split, float scale, cudaStream_t stream) {
   const size_t smem = Layout<HD>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
       decode_attention_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  dim3 grid(kvh, b);
+  // one split writes the result itself; more write partials to merge
+  const bool merge = n_split > 1;
+  dim3 grid(kvh, b, n_split);
   decode_attention_kernel<HD><<<grid, kThreads, smem, stream>>>(
       q, q_bf16, static_cast<const int8_t*>(k_q), k_s,
       static_cast<const int8_t*>(v_q), v_s, s_bf16,
-      static_cast<const int32_t*>(length), static_cast<float*>(out),
-      static_cast<float*>(m), static_cast<float*>(l), S, kvh, g, scale);
+      static_cast<const int32_t*>(length), static_cast<float*>(merge ? ws_out : out),
+      static_cast<float*>(merge ? ws_m : m), static_cast<float*>(merge ? ws_l : l),
+      b, S, kvh, g, n_split, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !merge) return err;
+  decode_attention_merge_kernel<<<dim3(kvh, b), kMergeThreads, 0, stream>>>(
+      static_cast<const float*>(ws_out), static_cast<const float*>(ws_m),
+      static_cast<const float*>(ws_l), static_cast<const int32_t*>(length),
+      static_cast<float*>(out), static_cast<float*>(m), static_cast<float*>(l),
+      b, S, kvh, g, HD, n_split);
   return cudaGetLastError();
 }
 
@@ -353,32 +421,44 @@ cudaError_t launch(const void* q, int q_bf16, const void* k_q, const void* k_s,
 extern "C" {
 
 // q_dtype / s_dtype: 0 = float32, 1 = bfloat16.  Returns
-// cudaGetLastError() after the launch (0 on success).  The caller
+// cudaGetLastError() after the launches (0 on success).  The caller
 // validated shapes, dtypes, contiguity, 16-byte alignment of k_q and v_q,
-// b <= 65535, 1 <= g <= 16 and S >= 1.
+// b <= 65535, 1 <= g <= 16, S >= 1 and 1 <= n_split <= ceil(S / 64), and
+// for n_split > 1 allocated the f32 partials ws_out (n_split, b, kvh, g,
+// hd) and ws_m, ws_l (n_split, b, kvh, g).
 int decode_attention_launch(const void* q, int q_dtype, const void* k_q,
                             const void* k_s, const void* v_q, const void* v_s,
                             int s_dtype, const void* length, void* out, void* m,
-                            void* l, int b, int S, int kvh, int g, int hd,
-                            float scale, void* stream) {
+                            void* l, void* ws_out, void* ws_m, void* ws_l, int b,
+                            int S, int kvh, int g, int hd, int n_split, float scale,
+                            void* stream) {
   if (b == 0 || kvh == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (q_dtype < 0 || q_dtype > 1 || s_dtype < 0 || s_dtype > 1)
+  if (q_dtype < 0 || q_dtype > 1 || s_dtype < 0 || s_dtype > 1 || n_split < 1 ||
+      (n_split > 1 && (!ws_out || !ws_m || !ws_l)))
     return static_cast<int>(cudaErrorInvalidValue);
+#define DA_LAUNCH(HD_)                                                             \
+  case HD_:                                                                        \
+    return launch<HD_>(q, q_dtype, k_q, k_s, v_q, v_s, s_dtype, length, out, m, l, \
+                       ws_out, ws_m, ws_l, b, S, kvh, g, n_split, scale, st);
   switch (hd) {
-    case 16:
-      return launch<16>(q, q_dtype, k_q, k_s, v_q, v_s, s_dtype, length, out, m, l, b, S, kvh, g, scale, st);
-    case 32:
-      return launch<32>(q, q_dtype, k_q, k_s, v_q, v_s, s_dtype, length, out, m, l, b, S, kvh, g, scale, st);
-    case 64:
-      return launch<64>(q, q_dtype, k_q, k_s, v_q, v_s, s_dtype, length, out, m, l, b, S, kvh, g, scale, st);
-    case 128:
-      return launch<128>(q, q_dtype, k_q, k_s, v_q, v_s, s_dtype, length, out, m, l, b, S, kvh, g, scale, st);
-    case 256:
-      return launch<256>(q, q_dtype, k_q, k_s, v_q, v_s, s_dtype, length, out, m, l, b, S, kvh, g, scale, st);
+    DA_LAUNCH(16)
+    DA_LAUNCH(32)
+    DA_LAUNCH(64)
+    DA_LAUNCH(128)
+    DA_LAUNCH(256)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef DA_LAUNCH
+}
+
+// The card's SM count, which the wrapper's split rule reads.
+int decode_attention_sm_count(int device) {
+  int n = 0;
+  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device) != cudaSuccess)
+    return 0;
+  return n;
 }
 
 const char* decode_attention_error_string(int err) {

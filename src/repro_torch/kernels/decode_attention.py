@@ -2,29 +2,33 @@
 
 Replaces the Pallas TPU kernel ``repro/kernels/decode_attention.py``
 (``fused_decode_attention_pallas`` :94 and its body ``_kernel`` :43)
-with the hand-written CUDA C++ kernel in ``csrc/decode_attention.cu``:
+with the hand-written CUDA C++ kernels in ``csrc/decode_attention.cu``:
 the cache half of one decode step's attention, which
 ``models.attention.decode_attention_readonly`` merges with the new
 token's own K/V.
 
-What bounds it on an H100: operations.  With g query rows per KV head
-the two products do 4·g·hd flop per cached position for 2·hd + 4 bytes;
-at chatglm3's g = 16 that is 29 flop a byte, above the f32 CUDA-core
-ridge, so the f32 kernel's floor is its flop over 67 TFLOP/s, with the
-byte floor (the int8 cache read once) below it.  The kernel reads the
-int8 cache once, dequantizes it in shared memory (the dequantized cache
-never exists in device memory), feeds the FMAs from register tiles, and
-reads ``length`` on the device, so a decode step never waits on the host.
+What bounds it on an H100: bytes (the int8 cache read once).  The two
+products run on the tensor cores (bf16 ``mma.sync``, f32 accumulate),
+whose rate is far above the work's 29 flop a byte at g = 16.  S is split
+across blocks: ``n_split`` blocks per (sequence, KV head) each take a
+contiguous range of the chunks that the device-side ``length`` needs and
+write a partial ``(out, m, l)``; a second kernel merges them in a fixed
+order.  ``length`` is read only on the device, so a decode step never
+waits on the host.
 
 On CPU tensors the wrapper runs the plain version
 (:func:`repro_torch.kernels.ref.fused_decode_attention_ref`); on CUDA
-tensors it launches the kernel or raises.
-``fused_decode_attention_cuda.launches`` counts kernel launches.
+tensors it launches the kernels or raises.
+``fused_decode_attention_cuda.launches`` counts calls that launched;
+:func:`kernels_per_call` says how many device kernels one such call runs.
 """
 
 from __future__ import annotations
 
 import torch
+
+import functools
+import math
 
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels._build import load_decode_attention
@@ -34,6 +38,29 @@ _HEAD_DIMS = (16, 32, 64, 128, 256)
 _MAX_G = 16       # query rows per KV head one CUDA block holds
 _MAX_BATCH = 65_535  # the grid's y dimension
 _ALIGN = 16       # bytes: the kernel reads cache rows as 16-byte vectors
+_BLOCKS_PER_SM = 2   # the split rule aims at about this many blocks an SM
+
+
+def choose_n_split(b: int, kvh: int, S: int, sm_count: int) -> int:
+    """Blocks per (sequence, KV head): enough for about two blocks an SM,
+    at most one per chunk of the cache.  Never from ``length``, which
+    stays on the device."""
+    want = math.ceil(_BLOCKS_PER_SM * sm_count / max(1, b * kvh))
+    return max(1, min(want, math.ceil(S / _ref.DECODE_CHUNK)))
+
+
+def kernels_per_call(n_split: int) -> int:
+    """Device kernels one call launches: the split kernel, and the merge
+    when there is more than one split."""
+    return 1 if n_split == 1 else 2
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    n = load_decode_attention().decode_attention_sm_count(index)
+    if n <= 0:
+        raise RuntimeError(f"cannot read the SM count of cuda:{index}")
+    return n
 
 
 def _check_shapes(q, k_q, k_s, v_q, v_s, length, block_s) -> None:
@@ -70,6 +97,7 @@ def fused_decode_attention_cuda(
     length: torch.Tensor,  # 0-d int32: positions >= length are masked
     *,
     block_s: int = 512,
+    n_split: int | None = None,
 ):
     """``fused_decode_attention_pallas`` counterpart (inference only: the
     TPU kernel has no VJP).
@@ -77,9 +105,14 @@ def fused_decode_attention_cuda(
     Returns the unnormalized ``out`` (b, kvh, g, hd) f32 with the row max
     ``m`` and denominator ``l`` (b, kvh, g) f32.  ``block_s`` is the TPU
     kernel's S tile: it is checked (``S % block_s``) as the reference
-    checks it; the CUDA kernel's own tile is fixed.
+    checks it; the CUDA kernel's own tile is fixed.  ``n_split`` forces
+    the number of S splits (tests and ``chip_smoke.py`` only); ``None``
+    takes :func:`choose_n_split`.  The plain version on CPU tensors has
+    no splits.
     """
     _check_shapes(q, k_q, k_s, v_q, v_s, length, block_s)
+    if n_split is not None and n_split < 1:
+        raise ValueError(f"n_split={n_split} must be >= 1")
     tensors = (q, k_q, k_s, v_q, v_s, length)
     if all(t.device.type == "cpu" for t in tensors):
         return _ref.fused_decode_attention_ref(q, k_q, k_s, v_q, v_s, length)
@@ -117,13 +150,22 @@ def fused_decode_attention_cuda(
     if b == 0 or kvh == 0:
         return out, m, l
     lib = load_decode_attention()
+    if n_split is None:
+        n_split = choose_n_split(b, kvh, S, _sm_count(device.index or 0))
+    n_split = min(n_split, math.ceil(S / _ref.DECODE_CHUNK))
+    if n_split > 1:  # f32 partials of every split, merged by the second kernel
+        ws_out = torch.empty((n_split, b, kvh, g, hd), dtype=torch.float32, device=device)
+        ws_ml = torch.empty((2, n_split, b, kvh, g), dtype=torch.float32, device=device)
+        ws = (ws_out.data_ptr(), ws_ml[0].data_ptr(), ws_ml[1].data_ptr())
+    else:
+        ws = (None, None, None)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.decode_attention_launch(
             q.data_ptr(), _DTYPE_CODE[q.dtype], k_q.data_ptr(), k_s.data_ptr(),
             v_q.data_ptr(), v_s.data_ptr(), _DTYPE_CODE[k_s.dtype],
-            length.data_ptr(), out.data_ptr(), m.data_ptr(), l.data_ptr(),
-            b, S, kvh, g, hd, 1.0 / (hd ** 0.5), stream,
+            length.data_ptr(), out.data_ptr(), m.data_ptr(), l.data_ptr(), *ws,
+            b, S, kvh, g, hd, n_split, 1.0 / (hd ** 0.5), stream,
         )
     if err != 0:
         msg = lib.decode_attention_error_string(err).decode()

@@ -79,3 +79,100 @@ def fused_decode_attention_ref(q, k_q, k_s, v_q, v_s, length):
     l = w.sum(dim=-1)
     out = torch.einsum("bkgt,btkd->bkgd", w, v)
     return out, m, l
+
+
+DECODE_CHUNK = 64  # cache positions per chunk of the CUDA flash-decode kernel
+
+
+def decode_split_ranges(length: int, S: int, n_split: int) -> list[tuple[int, int]]:
+    """The flash-decode kernel's split rule: the position ranges of the
+    splits that do work, in merge order.
+
+    The kernel visits ``min(length, S)`` positions (all ``S`` at
+    ``length <= 0``, where every position is masked and weighs 1), in
+    ``ceil(visit / 64)`` chunks; split ``i`` takes the contiguous chunks
+    ``[i * per, (i + 1) * per)`` with ``per = ceil(n_chunks / n_split)``,
+    and a split whose range is empty does nothing.
+    """
+    visit = S if length <= 0 else min(length, S)
+    n_chunks = -(-visit // DECODE_CHUNK)
+    per = -(-n_chunks // n_split)
+    return [(c * DECODE_CHUNK, min((c + per) * DECODE_CHUNK, S))
+            for c in range(0, n_chunks, per)]
+
+
+def split_bf16(x: torch.Tensor, terms: int) -> list[torch.Tensor]:
+    """``x`` (f32) as ``terms`` bf16 tensors whose f32 sum approximates
+    it: each term is the bf16 rounding of what the earlier ones left.
+    Three terms hold an f32 value to about 2^-24 of its size."""
+    out, rest = [], x.float()
+    for _ in range(terms):
+        t = rest.to(torch.bfloat16)
+        out.append(t)
+        rest = rest - t.float()
+    return out
+
+
+def _decode_partial(q, k_q, k_s, v_q, v_s, length, lo, hi, tensor_core):
+    """``(out, m, l)`` of one split over cache positions ``[lo, hi)``."""
+    hd = k_q.shape[-1]
+    scale = 1.0 / (hd ** 0.5)
+    kq, ks = k_q[:, lo:hi].float(), k_s[:, lo:hi].float()
+    vq, vs = v_q[:, lo:hi].float(), v_s[:, lo:hi].float()
+    if tensor_core:
+        # bf16 terms of q times the exact int8 entries, summed in f32;
+        # the per-position scale multiplies the f32 score after the product
+        terms = [q] if q.dtype == torch.bfloat16 else split_bf16(q, 3)
+        dot = sum(torch.einsum("bkgd,btkd->bkgt", t.float(), kq) for t in terms)
+        s = dot * ks.permute(0, 2, 1)[:, :, None, :] * scale
+    else:
+        s = torch.einsum("bkgd,btkd->bkgt", q.float(), kq * ks[..., None]) * scale
+    pos = torch.arange(lo, hi, device=k_q.device)[None, None, None, :]
+    s = torch.where(pos < length, s, torch.full_like(s, -1e30))
+    m = s.amax(dim=-1)
+    w = torch.exp(s - m[..., None])
+    l = w.sum(dim=-1)
+    if tensor_core:
+        # v's scale folded into the weights, which enter as 2 bf16 terms
+        wv = w * vs.permute(0, 2, 1)[:, :, None, :]
+        out = sum(torch.einsum("bkgt,btkd->bkgd", t.float(), vq) for t in split_bf16(wv, 2))
+    else:
+        out = torch.einsum("bkgt,btkd->bkgd", w, vq * vs[..., None])
+    return out, m, l
+
+
+def fused_decode_attention_split_ref(q, k_q, k_s, v_q, v_s, length, n_split,
+                                     *, tensor_core=False):
+    """:func:`fused_decode_attention_ref` as the CUDA kernel divides it:
+    the splits of :func:`decode_split_ranges` each give a partial
+    ``(out, m, l)``, merged in a fixed order (split 0 first) with
+    ``M = max m_i``, ``l = Σ l_i exp(m_i - M)``, ``out = Σ out_i exp(m_i - M)``.
+
+    ``tensor_core=True`` also repeats the kernel's arithmetic (see
+    :func:`fused_decode_attention_tc_ref`).  ``length`` is read on the
+    host here; the kernel reads it on the device.
+    """
+    S = k_q.shape[1]
+    parts = [_decode_partial(q, k_q, k_s, v_q, v_s, length, lo, hi, tensor_core)
+             for lo, hi in decode_split_ranges(int(length), S, n_split)]
+    big_m = parts[0][1]
+    for _, m_i, _ in parts[1:]:
+        big_m = torch.maximum(big_m, m_i)
+    out = torch.zeros_like(parts[0][0])
+    l = torch.zeros_like(parts[0][2])
+    for out_i, m_i, l_i in parts:
+        c = torch.exp(m_i - big_m)
+        l = l + l_i * c
+        out = out + out_i * c[..., None]
+    return out, big_m, l
+
+
+def fused_decode_attention_tc_ref(q, k_q, k_s, v_q, v_s, length, n_split=1):
+    """The flash-decode kernel's tensor-core arithmetic in plain torch:
+    int8 K and V enter the products unscaled (they are exact in bf16);
+    q enters as one bf16 term if it is bf16, else as 3 (hi, mid, lo);
+    scores are summed in f32 and scaled by ``k_s`` and ``1/sqrt(hd)``
+    after the product; ``l`` sums the unscaled f32 weights; the weights
+    times ``v_s`` enter PV as 2 bf16 terms."""
+    return fused_decode_attention_split_ref(q, k_q, k_s, v_q, v_s, length, n_split,
+                                            tensor_core=True)

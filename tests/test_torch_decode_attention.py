@@ -7,7 +7,13 @@ the CPU.
 * the wrapper ``fused_decode_attention_cuda`` on CPU tensors (its plain
   version) against ``fused_decode_attention_pallas`` in interpret mode, at
   two small shapes (interpret mode is slow);
-* the wrapper's contract errors and its launch count on the CPU.
+* the wrapper's contract errors and its launch count on the CPU;
+* the CUDA kernel's split-S rule and fixed-order merge
+  (``fused_decode_attention_split_ref``) and its tensor-core arithmetic
+  (``fused_decode_attention_tc_ref``: bf16 terms, f32 sums, scales after
+  the products) against JAX's oracle at every n_split and length the
+  kernel distinguishes, length 0 included; the bf16 term split; the
+  wrapper's split rule.
 
 Tolerances are the JAX kernel test's: ``m`` atol 1e-5; ``l`` and
 ``out / l`` rtol 1e-4, atol 1e-4 (both sides f32, summed in other orders).
@@ -24,6 +30,11 @@ from repro.kernels import fused_decode_attention_pallas
 from repro.kernels import fused_decode_attention_ref as j_ref
 from repro_torch.convert import _tensor
 from repro_torch.kernels import fused_decode_attention_cuda, fused_decode_attention_ref
+from repro_torch.kernels.ref import (
+    fused_decode_attention_split_ref,
+    fused_decode_attention_tc_ref,
+    split_bf16,
+)
 
 SHAPES = [  # (b, S, kvh, g, hd, block_s): tests/test_decode_kernel.py's
     (1, 256, 1, 1, 128, 128),
@@ -137,3 +148,112 @@ def test_wrapper_refuses_a_device_that_is_neither_cpu_nor_cuda():
     with pytest.raises(ValueError, match="CUDA device"):
         fused_decode_attention_cuda(*tt, block_s=256)
     assert fused_decode_attention_cuda.launches == before
+
+
+# --- the CUDA kernel's split-S rule and tensor-core arithmetic, in plain torch
+
+SPLIT_SHAPE = (2, 512, 2, 4, 64)     # b, S, kvh, g, hd: 8 chunks of 64
+SPLIT_LENGTHS = [0, 1, 63, 64, 65, 512 // 3 + 7, 512]
+
+
+def _split_inputs(dtype, seed=11):
+    """SPLIT_SHAPE's inputs; ``dtype`` "bf16" casts q and the scales."""
+    b, S, kvh, g, hd = SPLIT_SHAPE
+    q, k_q, k_s, v_q, v_s = _case(b, S, kvh, g, hd, seed=seed)
+    if dtype == "bf16":
+        q, k_s, v_s = (np.asarray(jnp.asarray(a, jnp.bfloat16)) for a in (q, k_s, v_s))
+    return q, k_q, k_s, v_q, v_s
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("length", SPLIT_LENGTHS)
+@pytest.mark.parametrize("n_split", [1, 2, 3, 7, 512 // 64])
+def test_split_ref_matches_jax_ref(n_split, length, dtype):
+    jx, tt = _both(_split_inputs(dtype), length)
+    got = fused_decode_attention_split_ref(*tt, n_split)
+    _check([x.numpy() for x in got], j_ref(*jx))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("length", SPLIT_LENGTHS)
+@pytest.mark.parametrize("n_split", [1, 3, 512 // 64])
+def test_tensor_core_ref_matches_jax_ref(n_split, length, dtype):
+    """bf16 terms (q: 1 if bf16 else 3; weights: 2), f32 sums, scales
+    after the products: within the kernel test's tolerances."""
+    jx, tt = _both(_split_inputs(dtype), length)
+    got = fused_decode_attention_tc_ref(*tt, n_split)
+    assert all(x.dtype == torch.float32 for x in got)
+    _check([x.numpy() for x in got], j_ref(*jx))
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 3, 7, 8])
+def test_split_length_zero_is_every_weight_one(n_split):
+    """At length 0 every split covers its slice with m = -1e30, so each
+    merge correction is exp(0) = 1 and l = S."""
+    b, S, kvh, g, hd = SPLIT_SHAPE
+    _, tt = _both(_split_inputs("f32"), 0)
+    for tc in (False, True):
+        out, m, l = fused_decode_attention_split_ref(*tt, n_split, tensor_core=tc)
+        assert torch.all(m == -1e30)
+        torch.testing.assert_close(l, torch.full_like(l, float(S)), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("length,n_split,want", [
+    (0, 1, [(0, 512)]),
+    (0, 3, [(0, 192), (192, 384), (384, 512)]),
+    (574, 17, [(i * 64, i * 64 + 64) for i in range(9)]),   # the served shape
+    (1, 8, [(0, 64)]),
+    (65, 7, [(0, 64), (64, 128)]),
+    (600, 2, [(0, 256), (256, 512)]),                       # length past S
+])
+def test_split_ranges(length, n_split, want):
+    from repro_torch.kernels.ref import decode_split_ranges
+
+    S = 512 if length != 574 else 4096
+    assert decode_split_ranges(length, S, n_split) == want
+
+
+def test_split_bf16_three_terms_reconstruct_f32():
+    x = torch.from_numpy(np.random.default_rng(3).normal(size=4096).astype(np.float32) * 40)
+    terms = split_bf16(x, 3)
+    assert all(t.dtype == torch.bfloat16 for t in terms)
+    back = sum(t.double() for t in terms)
+    rel = ((back - x.double()).abs() / x.double().abs()).max().item()
+    assert rel <= 2.0 ** -24
+    one = split_bf16(x, 1)[0].double()     # one term: only bf16's 8 bits
+    assert ((one - x.double()).abs() / x.double().abs()).max().item() > 2.0 ** -10
+
+
+@pytest.mark.parametrize("b,kvh,S,sms,want", [
+    (128, 2, 32_768, 132, 2),      # one decode_32k layer
+    (8, 2, 4_096, 132, 17),        # chatglm3-6b at the served shape
+    (1, 1, 256, 132, 4),           # capped at one split a chunk
+    (512, 8, 4_096, 132, 1),
+])
+def test_choose_n_split(b, kvh, S, sms, want):
+    from repro_torch.kernels.decode_attention import choose_n_split, kernels_per_call
+
+    assert choose_n_split(b, kvh, S, sms) == want
+    assert kernels_per_call(want) == (1 if want == 1 else 2)
+
+
+@pytest.mark.parametrize("n_split", [1, 3])
+def test_split_ref_matches_pallas_interpret(n_split):
+    b, S, kvh, g, hd, block_s, length = 2, 256, 2, 4, 64, 128, 150
+    arrays = _case(b, S, kvh, g, hd, seed=S + hd)
+    jx, tt = _both(arrays, length)
+    want = fused_decode_attention_pallas(*jx, block_s=block_s, interpret=True)
+    _check([x.numpy() for x in fused_decode_attention_split_ref(*tt, n_split)], want)
+    _check([x.numpy() for x in fused_decode_attention_tc_ref(*tt, n_split)], want)
+
+
+def test_wrapper_takes_n_split_and_checks_it():
+    tt = _tensors()
+    before = fused_decode_attention_cuda.launches
+    got = fused_decode_attention_cuda(*tt, block_s=256, n_split=3)
+    assert fused_decode_attention_cuda.launches == before  # the plain version ran
+    want = fused_decode_attention_ref(*tt)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="n_split"):
+        fused_decode_attention_cuda(*tt, block_s=256, n_split=0)
