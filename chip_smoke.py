@@ -36,13 +36,29 @@ Phases, in order; any failure propagates and the process exits non-zero:
    images) and the dense path agree per table, the kernel path's logits
    equal the dense path's, and loss and every gradient equal autograd
    through the plain versions; then 20 SGD steps through
-   ``launch.train_dlrm.train`` with finite losses.
+   ``launch.train_dlrm.train`` with finite losses;
+8. flash-decode parity: the kernel against its plain version at five
+   shapes, f32 and bf16, lengths 0, 1, S/3 + 7 and S (and 64, 65, 574 at
+   the served shape), each at forced split counts 1, 2, 7 and the host
+   rule's; then timed (split kernel and merge together) at the served
+   shape (b 8, S 4,096, length 574) and one ``decode_32k`` layer, beside
+   its bound, one split, its plain version and SDPA;
+9. LM: ``chatglm3-6b`` FULL decode with an int8 cache through the
+   kernel: logits against the plain version and a bf16 cache, 16
+   requests served, 28 launches a step, the kernel at the served layer,
+   a profiled window.
 
-Both kernels are built in parallel (one ``nvcc`` per source).  It then
+The kernels are built in parallel (one ``nvcc`` per source).  It then
 prints one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line,
 and as its last line ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or outside a checkout of the repository, it exits non-zero and
 prints no result.  It imports nothing of ``jax`` or ``repro``.
+
+    python3 chip_smoke.py --decode-kernel [EARLIER.cu ...]
+
+runs phase 8 alone, then times this checkout's flash-decode kernel in
+turns with each earlier ``decode_attention.cu`` given (for instance one
+written out by ``git show``), on the same inputs in one process.
 """
 
 from __future__ import annotations
@@ -93,10 +109,28 @@ LM_QUANT_TOL = 0.05                    # tests/test_models_numerics.py:141
 LM_PROFILE_STEPS = 4                   # decode steps traced with torch.profiler
 DECODE_32K = (128, 32_768, 2, 16, 128)  # one decode_32k layer: b, S, kvh, g, hd
 DA_TOL = {"m": 1e-5, "l": 1e-4, "out": 1e-4}  # tests/test_decode_kernel.py
+DA_SPLITS = (1, 2, 7, None)            # forced split counts, then the host rule
+LM_SERVED_LEN = 574                    # the cache length LM serving ends at
 
 
 def log(*parts) -> None:
     print(*parts, flush=True)
+
+
+def ptxas_summary(build_log: str) -> list[str]:
+    """One line a kernel instance from ``nvcc -Xptxas=-v``: its (mangled)
+    name with the registers, spill stores and spill loads ptxas reported."""
+    out, name, spill = [], None, ""
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if "'" in line else line.strip()
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and name:
+            regs = line.split("Used", 1)[1].split("registers")[0].strip()
+            out.append(f"{name}: {regs} registers; {spill}")
+            name, spill = None, ""
+    return out
 
 
 def nvidia_smi() -> str:
@@ -667,56 +701,170 @@ def da_parity(torch, name, inputs, length, n_split=None) -> dict:
     return row
 
 
-def phase_decode_kernel(torch, timer) -> dict:
-    """The flash-decode kernel against its plain version, then one
-    decode_32k layer timed."""
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.decode_attention import fused_decode_attention_cuda
+def da_sdpa(torch, q, k_q, k_s, v_q, v_s, length):
+    """``F.scaled_dot_product_attention`` over a bf16 copy of the
+    dequantized cache's first ``length`` positions (GQA as a batch): the
+    library yardstick, which the port never calls.  Returns the callable
+    and the bytes it reads."""
+    n = k_q.shape[1] if length <= 0 else min(length, k_q.shape[1])
+    kb = (k_q[:, :n].float() * k_s[:, :n].float()[..., None]).to(torch.bfloat16)
+    vb = (v_q[:, :n].float() * v_s[:, :n].float()[..., None]).to(torch.bfloat16)
+    kb, vb = kb.transpose(1, 2).contiguous(), vb.transpose(1, 2).contiguous()
+    qb = q.to(torch.bfloat16)
 
+    def library():  # (b, kvh, g, hd) queries over (b, kvh, n, hd) keys
+        return torch.nn.functional.scaled_dot_product_attention(qb, kb, vb)
+
+    return library, 2 * kb.numel() * kb.element_size()
+
+
+def da_timed(torch, timer, name, inputs, length, *, plain=True, library=True) -> dict:
+    """Parity, then the kernel's time (split kernel and merge together)
+    beside its bound, its plain version and SDPA, with the split count
+    the host rule gave and the device kernels a call launches."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import decode_attention as kda
+
+    row = da_parity(torch, name, inputs, length)
+    b, S, kvh, _ = inputs[1].shape
+    ln = torch.tensor(length, dtype=torch.int32, device=DEVICE)
+    n_split = kda.choose_n_split(b, kvh, S, torch.cuda.get_device_properties(0).multi_processor_count)
+    nbytes, flops = da_work(*inputs, length)
+    # the products' inputs are bf16 (q, scales) and int8, on the tensor
+    # cores: the work is bound by bytes; the f32 CUDA-core floor of PR 13's
+    # kernel is reported beside it
+    bound_ms, bound_by = bound(nbytes, flops, "bfloat16")
+    row.update(n_split=n_split, kernels_per_call=kda.kernels_per_call(n_split),
+               bytes=nbytes, flops=flops, bound_ms=bound_ms, bound_by=bound_by,
+               f32_ops_ms=flops / PEAK_FLOPS["float32"] * 1e3)
+    row["ms"] = timer.ms(lambda: kda.fused_decode_attention_cuda(*inputs, ln))
+    row["ms_one_split"] = timer.ms(lambda: kda.fused_decode_attention_cuda(*inputs, ln, n_split=1))
+    if plain:
+        row["plain_ms"] = timer.ms(lambda: ref.fused_decode_attention_ref(*inputs, ln), reps=5)
+    if library:
+        lib_fn, row["library_bytes"] = da_sdpa(torch, *inputs, length)
+        out, _, l = kda.fused_decode_attention_cuda(*inputs, ln)
+        row["library_max_abs_err"] = float((lib_fn().float() - out / l[..., None]).abs().max().item())
+        row["library_ms"] = timer.ms(lib_fn)
+        del lib_fn, out, l
+    row["GB_per_s"] = nbytes / row["ms"] / 1e6
+    log(f"da-{name}", json.dumps(row))
+    return row
+
+
+def phase_decode_kernel(torch, timer) -> dict:
+    """The flash-decode kernel against its plain version at every forced
+    split count and the host rule's, then timed at one decode_32k layer
+    and at the served shape."""
     gen = torch.Generator(device=DEVICE).manual_seed(2)
     shapes = [(1, 256, 1, 1, 128), (2, 1024, 2, 4, 128), (2, 512, 4, 2, 64),
               (1, 512, 2, 8, 256), (LM_SLOTS, LM_MAX_SEQ, 2, 16, 128)]
-    worst = 0.0
+    worst, cases = 0.0, 0
     for b, S, kvh, g, hd in shapes:
+        lengths = [0, 1, S // 3 + 7, S]
+        if (b, S) == (LM_SLOTS, LM_MAX_SEQ):   # the lengths LM serving reaches
+            lengths += [64, 65, LM_SERVED_LEN]
         for dtype in (torch.float32, torch.bfloat16):
             inputs = da_case(torch, gen, b, S, kvh, g, hd, dtype)
-            for length in (0, 1, S // 3 + 7, S):
-                row = da_parity(torch, f"{b}x{S}x{kvh}x{g}x{hd}", inputs, length)
-                worst = max(worst, row["max_abs_err"])
+            for length in lengths:
+                for n_split in DA_SPLITS:
+                    row = da_parity(torch, f"{b}x{S}x{kvh}x{g}x{hd}", inputs, length, n_split)
+                    worst = max(worst, row["max_abs_err"])
+                    cases += 1
         log("da-parity", json.dumps(row))
-    log(f"da-parity: 5 shapes x 2 dtypes x 4 lengths passed, max_abs_err (out/l) {worst}")
+    log(f"da-parity: {cases} cases (5 shapes x 2 dtypes x 4-7 lengths x n_split "
+        f"{DA_SPLITS}) passed, max_abs_err (out/l) {worst}")
 
-    # one decode_32k layer, full length, bf16 q and scales (the cache's)
+    # the served shape at the length serving ends at, bf16 (the cache's)
+    inputs = da_case(torch, gen, LM_SLOTS, LM_MAX_SEQ, 2, 16, 128, torch.bfloat16)
+    served = da_timed(torch, timer, "served-shape", inputs, LM_SERVED_LEN)
+    # one decode_32k layer, full length, bf16 q and scales
     b, S, kvh, g, hd = DECODE_32K
     inputs = da_case(torch, gen, b, S, kvh, g, hd, torch.bfloat16)
-    row = da_parity(torch, "decode_32k", inputs, S)
-    ln = torch.tensor(S, dtype=torch.int32, device=DEVICE)
-    nbytes, flops = da_work(*inputs, S)
-    # the products' inputs are bf16 (q, scales) and int8: on the tensor
-    # cores the same work is bound by bytes; the f32 CUDA-core floor is
-    # reported beside it
-    bound_ms, bound_by = bound(nbytes, flops, "bfloat16")
-    row.update(bytes=nbytes, flops=flops, bound_ms=bound_ms, bound_by=bound_by,
-               f32_ops_ms=flops / PEAK_FLOPS["float32"] * 1e3)
-    row["ms"] = timer.ms(lambda: fused_decode_attention_cuda(*inputs, ln))
-    row["plain_ms"] = timer.ms(lambda: ref.fused_decode_attention_ref(*inputs, ln), reps=5)
-    q, k_q, k_s, v_q, v_s = inputs
-    kb = (k_q.float() * k_s.float()[..., None]).to(torch.bfloat16).transpose(1, 2).contiguous()
-    vb = (v_q.float() * v_s.float()[..., None]).to(torch.bfloat16).transpose(1, 2).contiguous()
-    del k_q, v_q
-
-    def library():  # (b, kvh, g, hd) queries over (b, kvh, S, hd) keys: GQA as a batch
-        return torch.nn.functional.scaled_dot_product_attention(q, kb, vb)
-
-    out, _, l = fused_decode_attention_cuda(*inputs, ln)
-    row["library_max_abs_err"] = float((library().float() - out / l[..., None]).abs().max().item())
-    row["library_ms"] = timer.ms(library)
-    row["library_bytes"] = 2 * kb.numel() * kb.element_size()
-    row["GB_per_s"] = nbytes / row["ms"] / 1e6
-    log("da-32k", json.dumps(row))
-    del inputs, kb, vb, q, k_s, v_s, out, l
+    row = da_timed(torch, timer, "decode_32k", inputs, S)
+    row["served_shape"] = {k: served[k] for k in (
+        "n_split", "kernels_per_call", "ms", "ms_one_split", "bound_ms", "GB_per_s",
+        "plain_ms", "library_ms")}
+    del inputs
     torch.cuda.empty_cache()
     return row
+
+
+def da_library_from(torch, source: Path, tag: str):
+    """Builds an earlier ``decode_attention.cu`` (e.g. from ``git show
+    <commit>:src/repro_torch/kernels/csrc/decode_attention.cu``) and returns
+    a launcher with the wrapper's arguments.  Sources with a split count
+    in their C interface get the host rule's; older ones take none."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import decode_attention as kda
+
+    out_path = _build.BUILD_DIR / f"libdecode_attention_{tag}.so"
+    out_path.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(out_path), str(source)],
+                   check=True, capture_output=True, text=True)
+    lib = ctypes.CDLL(str(out_path))
+    split = hasattr(lib, "decode_attention_sm_count")
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.decode_attention_launch.restype = i32
+    lib.decode_attention_launch.argtypes = (
+        [vp, i32, vp, vp, vp, vp, i32, vp, vp, vp, vp] + [vp] * 3 * split
+        + [i32] * (5 + split) + [ctypes.c_float, vp])
+
+    def launch(q, k_q, k_s, v_q, v_s, ln):
+        b, kvh, g, hd = q.shape
+        S = k_q.shape[1]
+        out = torch.empty((b, kvh, g, hd), dtype=torch.float32, device=DEVICE)
+        m = torch.empty((b, kvh, g), dtype=torch.float32, device=DEVICE)
+        l = torch.empty_like(m)
+        extra, sizes = [], [b, S, kvh, g, hd]
+        if split:
+            n = kda.choose_n_split(b, kvh, S, torch.cuda.get_device_properties(0).multi_processor_count)
+            ws = torch.empty((n, b, kvh, g, hd), dtype=torch.float32, device=DEVICE)
+            ml = torch.empty((2, n, b, kvh, g), dtype=torch.float32, device=DEVICE)
+            extra = [ws.data_ptr(), ml[0].data_ptr(), ml[1].data_ptr()] if n > 1 else [None] * 3
+            sizes.append(n)
+        code = {torch.float32: 0, torch.bfloat16: 1}
+        err = lib.decode_attention_launch(
+            q.data_ptr(), code[q.dtype], k_q.data_ptr(), k_s.data_ptr(), v_q.data_ptr(),
+            v_s.data_ptr(), code[k_s.dtype], ln.data_ptr(), out.data_ptr(), m.data_ptr(),
+            l.data_ptr(), *extra, *sizes, 1.0 / hd ** 0.5, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"{source}: launch failed ({err})")
+        return out, m, l
+
+    return launch
+
+
+def phase_decode_compare(torch, timer, sources: list[Path]) -> None:
+    """This checkout's flash-decode kernel against earlier versions of its
+    source, on one card in one process, in turns (earlier, this, this,
+    earlier), at the served shape and one decode_32k layer."""
+    from repro_torch.kernels import decode_attention as kda
+
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
+    others = {f"v{i}": da_library_from(torch, src, f"v{i}") for i, src in enumerate(sources)}
+    for name, (b, S, kvh, g, hd), length in (
+            ("served-shape", (LM_SLOTS, LM_MAX_SEQ, 2, 16, 128), LM_SERVED_LEN),
+            ("decode_32k", DECODE_32K, DECODE_32K[1])):
+        inputs = da_case(torch, gen, b, S, kvh, g, hd, torch.bfloat16)
+        ln = torch.tensor(length, dtype=torch.int32, device=DEVICE)
+        row = {"case": name, "length": length, "sources": {k: str(v) for k, v in
+                                                          zip(others, sources)}}
+        want = kda.fused_decode_attention_cuda(*inputs, ln)
+        for tag, fn in others.items():
+            got = fn(*inputs, ln)
+            row[f"{tag}_vs_this_out_l"] = float((got[0] / got[2][..., None]
+                                                 - want[0] / want[2][..., None]).abs().max())
+            row[f"{tag}_ms"] = [timer.ms(lambda: fn(*inputs, ln))]
+        row["this_ms"] = [timer.ms(lambda: kda.fused_decode_attention_cuda(*inputs, ln))
+                          for _ in range(2)]
+        for tag, fn in reversed(others.items()):
+            row[f"{tag}_ms"].append(timer.ms(lambda: fn(*inputs, ln)))
+        log("da-compare", json.dumps(row))
+        del inputs, want
+        torch.cuda.empty_cache()
 
 
 def lm_logits(torch, np, params, cfg, cache, tokens) -> list:
@@ -839,6 +987,9 @@ def phase_lm(torch, np, timer) -> dict:
     ln = torch.tensor(length, dtype=torch.int32, device=DEVICE)
     served["ms"] = timer.ms(lambda: kda.fused_decode_attention_cuda(
         qg, layer[0], layer[1], layer[2], layer[3], ln))
+    served["n_split"] = kda.choose_n_split(
+        LM_SLOTS, cfg.kv_heads, LM_MAX_SEQ, torch.cuda.get_device_properties(0).multi_processor_count)
+    served["kernels_per_call"] = kda.kernels_per_call(served["n_split"])
     nbytes, flops = da_work(qg, *layer, length)
     served["bound_ms"], served["bound_by"] = bound(nbytes, flops, "bfloat16")
     log("da-served", json.dumps(served))
@@ -874,7 +1025,7 @@ def kernel_entry(name, source, replaces, launches, row) -> dict:
     }
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         raise SystemExit("chip_smoke.py must run from a checkout of the repository")
     import torch
@@ -901,9 +1052,16 @@ def main() -> int:
     _build.load_decode_attention()
     for name, (path, build_s, build_log) in built.items():
         log(f"build: {path.relative_to(ROOT)} in {build_s:.2f} s")
-        log("\n".join(l for l in build_log.splitlines() if "registers" in l or "spill" in l))
+        for line in ptxas_summary(build_log):
+            log(f"ptxas: {line}")
 
     timer = Timer(torch)
+    if argv[:1] == ["--decode-kernel"]:
+        # the flash-decode kernel alone, against earlier sources of it
+        phase_decode_kernel(torch, timer)
+        phase_decode_compare(torch, timer, [Path(p) for p in argv[1:]])
+        log(f"total: {time.perf_counter() - t_start:.1f} s")
+        return 0
     phase_parity(torch, timer)
     serving, serving_row, server, tables, streams, histories = phase_serving(torch, np, timer)
     flat = phase_flat(torch, timer, server, tables, streams)
@@ -943,4 +1101,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -22,34 +22,57 @@
 // then multiplies all of it by exp(-1e30 - s_new) = 0).  For that reason
 // a chunk lying wholly past length is skipped only when length >= 1: its
 // weights exp(-1e30 - m) are then exactly 0 and its correction exactly 1.
+// Positions past S (a ragged last chunk) take no part at all.
 //
-// Bound.  With g query rows per KV head the two products do 4 g hd flop
-// per cached position for 2 hd + 4 bytes read; at g = 16 that is 29 flop
-// a byte, above the f32 CUDA-core ridge (67e12 / 3.35e12 = 20), so in
-// f32 the kernel is bound by operations (one decode_32k layer: 6.9e10
-// flop = 1.03 ms at 67 TFLOP/s against 0.65 ms for its 2.18 GB).  The
-// design keeps the int8 cache the only large traffic (the dequantized
-// cache never exists in device memory) and feeds the FMAs from shared
-// memory with register tiles: QK^T gives each thread 4 query rows x 1
-// position (one float4 of K and four broadcast float4s of q per 16 FMAs;
-// K rows padded by 4 floats, so a quarter-warp's float4 reads hit 32
-// distinct banks), PV gives each thread 4 rows x 4 columns over a slice
-// of the chunk's positions (weights read as float4 along t).  The next
-// chunk's int8 rows are fetched into registers (16-byte loads, a row's
-// lanes on neighbouring addresses) while the current chunk computes.
-// Moving the products to tensor cores (int8 or bf16 mma) is later work.
+// Bound.  The two products do 4 g hd flop per cached position for
+// 2 hd + 4 bytes read, 29 flop a byte at g = 16: far under the bf16
+// tensor-core ridge (295), so on the tensor cores the kernel is bound by
+// bytes (one decode_32k layer: 2.18 GB = 0.65 ms at 3.35 TB/s).  The
+// design keeps the int8 cache the only large traffic and the only cache
+// data in shared memory:
+//
+// * Both products run on mma.sync.m16n8k16 with bf16 inputs and f32
+//   accumulators.  The g <= 16 query rows fill m16 (rows past g are zero
+//   and never written).  int8 converts to bf16 exactly (|x| <= 128 needs
+//   8 significant bits), in registers, from 32-bit words: a byte is
+//   placed under the exponent of 2^23 (prmt), 2^23 + 128 is subtracted
+//   and the f32's upper half is the exact bf16.  So K and V enter the
+//   products unscaled:
+//     QK^T: s[t] = (q . k_int[t]) * k_s[t] * (1/sqrt(hd)), the scale
+//           applied to the f32 score after the product.  A bf16 q is one
+//           bf16 term; an f32 q is 3 (hi, mid, lo), which hold it to
+//           ~2^-24, summed smallest first per k step into a fresh
+//           fragment and then added in f32 (the tensor cores truncate as
+//           they accumulate).
+//     PV:   v_s[t] folded into the f32 weights, w'[r,t] = w[r,t] v_s[t],
+//           split into 2 bf16 terms; l sums the unscaled f32 weights.
+//   The online softmax stays in f32.
+// * The reduction dimension is permuted so that every operand fragment is
+//   a contiguous run of bytes in a cache row: in QK^T, lane (gid, tq) of
+//   a warp takes bytes [tq hd/4, (tq + 1) hd/4) of K row gid (the same
+//   permutation applied to q's fragments, prepared once in shared
+//   memory); in PV, the weights' C fragments from QK^T are reused as A
+//   fragments directly (positions are the k index), and a lane reads one
+//   32-bit word of each of its 4 V rows and transposes the bytes with 4
+//   prmt, so d = 32 grp + 4 gid + i is output column gid of n-tile
+//   (grp, i).
+// * K and V chunks come into shared memory by cp.async (16-byte copies,
+//   the scales by 4-byte copies of the word that holds them) in a
+//   kStages-deep ring.  Rows are hd bytes with their 16-byte chunks
+//   XOR-swizzled by the row, so the fragment reads above and the copies
+//   are free of bank conflicts at hd = 128.
 //
 // Grid: (kvh, b, n_split).  The block of split i takes chunks [i * per,
 // (i + 1) * per) of the ceil(visit / kT) chunks that the device-side
 // length needs (per = ceil(n_chunks / n_split); an empty range writes
-// nothing) and loops over them in chunks of kT = 64 positions: the TPU
-// grid's sequential "arbitrary" S axis with its VMEM carries (m, l, acc)
-// becomes this loop with m and l in shared memory and acc in registers.
-// With n_split > 1 each split writes a partial (out, m, l) and
-// decode_attention_merge_kernel combines them in a fixed order.  256
-// threads; the block holds kG = 16 query rows (rows past g are zero and
-// never written), hd in {16, 32, 64, 128, 256}.  Dynamic shared memory:
-// 79 KB at hd = 128, 149 KB at 256.
+// nothing).  Its 4 warps each own 16 positions of every 64-position
+// chunk with their own (m, l, acc) in registers (the TPU grid's
+// sequential S axis and its VMEM carries become this loop); at the end
+// the warps merge through shared memory in a fixed order.  With
+// n_split > 1 each split writes a partial (out, m, l) and
+// decode_attention_merge_kernel combines them in a fixed order, split 0
+// first.  Dynamic shared memory at hd = 128: 53.5 KB with a bf16 q
+// (four blocks an SM), 61.5 KB with an f32 q.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -57,83 +80,141 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kT = 64;       // cache positions per chunk
-constexpr int kG = 16;       // query rows a block holds (g <= kG)
-constexpr int kRows = 4;     // query rows per thread in both products
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kT = 64;              // cache positions per chunk
+constexpr int kWarpT = kT / kWarps; // positions per warp and chunk: one m16n8k16 k step
+constexpr int kG = 16;              // query rows a block holds (g <= kG): mma's m16
+constexpr int kStages = 3;          // cp.async ring depth
 constexpr float kMasked = -1e30f;
 constexpr int kMergeThreads = 128;
-
-static_assert(kT == 64, "the softmax step maps a chunk onto 2 x 32 lanes");
-static_assert((kThreads / 32) * 2 == kG, "one warp per 2 rows in the softmax");
-static_assert((kThreads / kT) * kRows == kG, "QK^T tiles cover kG x kT");
+static_assert(kWarpT == 16, "a warp's positions are one k step of PV");
 
 __device__ __forceinline__ float load_f(const void* p, int64_t i, int bf16) {
   return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
               : static_cast<const float*>(p)[i];
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+// 16 bytes from global into shared memory; src_bytes = 0 fills zeros
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
 }
 
-__device__ __forceinline__ float comp(const float4& v, int u) {
-  return u == 0 ? v.x : u == 1 ? v.y : u == 2 ? v.z : v.w;
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
 }
 
-// Shared-memory layout, in floats.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
+// D += A B: m16n8k16, A row-major bf16 (4 regs), B col-major bf16 (2), f32
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four int8 in a word (already XORed with 0x80808080) as two exact bf16
+// pairs: lo = bytes (0, 1), hi = bytes (2, 3), lower byte in the lower half.
+__device__ __forceinline__ void int8x4_to_bf16(uint32_t u, uint32_t& lo, uint32_t& hi) {
+  constexpr float kBias = 8388736.f;  // 2^23 + 128
+  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540)) - kBias;
+  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541)) - kBias;
+  const float f2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7542)) - kBias;
+  const float f3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7543)) - kBias;
+  // |x| <= 128: the f32's lower 16 bits are zero, its upper half is the bf16
+  lo = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
+  hi = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(a, b);  // a in the lower half
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// A scale from its staged word: an f32, or the bf16 half selected by bit
+// 1 of the element's address.
+__device__ __forceinline__ float scale_of(uint32_t w, int s_bf16, int high) {
+  if (!s_bf16) return __uint_as_float(w);
+  return __uint_as_float(high ? (w & 0xFFFF0000u) : (w << 16));
+}
+
+// Shared-memory layout, in bytes.  q's A fragments first ([term][k step]
+// [lane] as uint4), then kStages stages of K rows, V rows and the scale
+// words; the warps' merge scratch reuses the stages after the loop.
 template <int HD>
 struct Layout {
-  static constexpr int kKStride = HD + 4;          // padded K rows
-  static constexpr int q = 0;                      // [kG][HD]; the split merge reuses it
-  static constexpr int k = q + kG * HD;            // [kT][kKStride] dequantized K
-  static constexpr int v = k + kT * kKStride;      // [kT][HD] dequantized V
-  static constexpr int p = v + kT * HD;            // [kG][kT] scores, then weights
-  static constexpr int corr = p + kG * kT;         // [kG] exp(m_prev - m_new)
-  static constexpr int m = corr + kG;              // [kG] running max
-  static constexpr int l = m + kG;                 // [kG] running denominator
-  static constexpr size_t bytes = (l + kG) * sizeof(float);
+  static constexpr int kRow = HD;                    // bytes a cache row
+  static constexpr int kChunks = HD / 16;            // 16-byte chunks a row
+  static constexpr int kSwz = kChunks < 8 ? kChunks : 8;  // chunk XOR span
+  static constexpr int kKSteps = HD / 16;
+  static constexpr int kQTerm = kKSteps * 32 * 16;   // one term's fragments
+  static constexpr int kK = 0;
+  static constexpr int kV = kK + kT * kRow;
+  static constexpr int kKs = kV + kT * kRow;         // [kT] k_s words
+  static constexpr int kVs = kKs + kT * 4;           // [kT] v_s words
+  static constexpr int kStage = kVs + kT * 4;
+  static constexpr int kMerge = kWarps * (kG * HD + 3 * kG) * 4;
+  static_assert(kMerge <= kStages * kStage, "merge scratch fits the stages");
+  static size_t bytes(int q_terms) { return (size_t)q_terms * kQTerm + kStages * kStage; }
 };
 
+// byte offset of chunk c of row t in a stage's K or V block
 template <int HD>
-__global__ void __launch_bounds__(kThreads)
-decode_attention_kernel(const void* __restrict__ q, int q_bf16,
-                        const int8_t* __restrict__ k_q, const void* __restrict__ k_s,
-                        const int8_t* __restrict__ v_q, const void* __restrict__ v_s,
-                        int s_bf16, const int32_t* __restrict__ length,
-                        float* __restrict__ out, float* __restrict__ m_out,
-                        float* __restrict__ l_out, int b_count, int S, int kvh, int g,
-                        int n_split, float scale) {
-  static_assert(HD >= 16 && HD <= 256 && kThreads % HD == 0, "head dim");
+__device__ __forceinline__ int swz(int t, int c) {
   using L = Layout<HD>;
-  constexpr int kVecRow = HD / 16;                 // 16-byte vectors per cache row
-  constexpr int kVecs = kT * kVecRow;              // per chunk, K or V
-  constexpr int kPer = (kVecs + kThreads - 1) / kThreads;
-  constexpr int kCols4 = HD / 4;                   // PV: float4 columns
-  constexpr int kGroups = kG / kRows;              // PV: row groups
-  constexpr int kSplit = kThreads / (kCols4 * kGroups);  // PV: position slices
-  constexpr int kTS = kT / kSplit;
-  static_assert(kTS % 4 == 0, "PV reads weights as float4 along t");
+  return t * L::kRow + ((c ^ (t & (L::kSwz - 1))) << 4);
+}
 
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* q_s = smem + L::q;
-  float* k_sm = smem + L::k;
-  float* v_sm = smem + L::v;
-  float* p_s = smem + L::p;
-  float* corr_s = smem + L::corr;
-  float* m_s = smem + L::m;
-  float* l_s = smem + L::l;
+// One split of one (b, h): QT bf16 terms of q (1 for a bf16 q, 3 for f32).
+template <int HD, int QT>
+__global__ void __launch_bounds__(kThreads, HD <= 128 ? 4 : 2)
+decode_attention_kernel(const void* __restrict__ q, const int8_t* __restrict__ k_q,
+                        const void* __restrict__ k_s, const int8_t* __restrict__ v_q,
+                        const void* __restrict__ v_s, int s_bf16,
+                        const int32_t* __restrict__ length, float* __restrict__ out,
+                        float* __restrict__ m_out, float* __restrict__ l_out, int b_count,
+                        int S, int kvh, int g, int n_split, float scale) {
+  static_assert(HD >= 16 && HD <= 256 && (HD & (HD - 1)) == 0, "head dim");
+  static_assert(QT == 1 || QT == 3, "q terms");
+  using L = Layout<HD>;
+  constexpr int kKSteps = HD / 16;
+  constexpr int kKBytes = HD / 4;                  // QK^T: bytes of a K row a lane reads
+  constexpr int kKLoad = kKBytes >= 16 ? 4 : kKBytes / 4;  // words a K load brings
+  constexpr int kWB = HD >= 32 ? 4 : 2;            // PV: bytes of a V row a lane reads
+  constexpr int kGroupD = 8 * kWB;                 // PV: d columns of kWB n-tiles
+  constexpr int kGroups = HD / kGroupD;
+  constexpr int kNT = HD / 8;                      // PV: n-tiles
+  static_assert(kGroups * kWB == kNT, "PV n-tiles");
+
+  extern __shared__ uint4 smem16[];
+  uint4* qf = smem16;                              // [QT][kKSteps][32] A fragments
+  uint8_t* stages = reinterpret_cast<uint8_t*>(smem16) + QT * L::kQTerm;
 
   const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int gid = lane >> 2;                       // fragment row / column group
+  const int tq = lane & 3;                         // thread in the group
   const int h = blockIdx.x;
   const int b = blockIdx.y;
   const int split = blockIdx.z;
@@ -150,194 +231,290 @@ decode_attention_kernel(const void* __restrict__ q, int q_bf16,
   const int c_end = min(c_begin + per, n_chunks);
   if (c_begin >= c_end) return;  // an empty split writes nothing
 
-  for (int i = tid; i < kG * HD; i += kThreads) {
-    const int r = i / HD;
-    q_s[i] = r < g ? load_f(q, (bh * g + r) * HD + i % HD, q_bf16) : 0.f;
-  }
-  if (tid < kG) {
-    m_s[tid] = kMasked;
-    l_s[tid] = 0.f;
-  }
+  const int esize = s_bf16 ? 2 : 4;
+  // bf16 scales: which half of its aligned word an element is in
+  const unsigned ks_half = (unsigned)(reinterpret_cast<uintptr_t>(k_s) >> 1);
+  const unsigned vs_half = (unsigned)(reinterpret_cast<uintptr_t>(v_s) >> 1);
 
-  int4 k_reg[kPer], v_reg[kPer];
-  float ks_reg[kPer], vs_reg[kPer];
-  auto fetch = [&](int c) {
+  // chunk c's K and V rows and scale words into stage st (zeros past S)
+  auto issue = [&](int c, int st) {
+    uint8_t* base = stages + st * L::kStage;
+    const int pos0 = c * kT;
 #pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-      const int i = tid + j * kThreads;
-      const int pos = c * kT + i / kVecRow;
-      if (i < kVecs && pos < S) {
-        const int64_t row = ((int64_t)b * S + pos) * kvh + h;
-        k_reg[j] = __ldg(reinterpret_cast<const int4*>(k_q + row * HD) + i % kVecRow);
-        v_reg[j] = __ldg(reinterpret_cast<const int4*>(v_q + row * HD) + i % kVecRow);
-        ks_reg[j] = load_f(k_s, row, s_bf16);
-        vs_reg[j] = load_f(v_s, row, s_bf16);
-      } else {
-        k_reg[j] = make_int4(0, 0, 0, 0);
-        v_reg[j] = make_int4(0, 0, 0, 0);
-        ks_reg[j] = 0.f;
-        vs_reg[j] = 0.f;
-      }
+    for (int i = tid; i < 2 * kT * L::kChunks; i += kThreads) {
+      const int kv = i / (kT * L::kChunks);        // 0: K, 1: V
+      const int r = i % (kT * L::kChunks);
+      const int t = r / L::kChunks;
+      const int ch = r % L::kChunks;
+      const int pos = pos0 + t;
+      const bool ok = pos < S;
+      const int64_t row = ((int64_t)b * S + (ok ? pos : 0)) * kvh + h;
+      cp_async16(base + (kv ? L::kV : L::kK) + swz<HD>(t, ch),
+                 (kv ? v_q : k_q) + row * HD + ch * 16, ok ? 16 : 0);
     }
-  };
-  auto stage = [&]() {
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-      const int i = tid + j * kThreads;
-      if (i >= kVecs) continue;
-      const int t = i / kVecRow;
-      const int col = (i % kVecRow) * 16;
-      const int8_t* ke = reinterpret_cast<const int8_t*>(&k_reg[j]);
-      const int8_t* ve = reinterpret_cast<const int8_t*>(&v_reg[j]);
-      float* kd = k_sm + t * L::kKStride + col;
-      float* vd = v_sm + t * HD + col;
-#pragma unroll
-      for (int u = 0; u < 16; u += 4) {
-        *reinterpret_cast<float4*>(kd + u) = make_float4(
-            (float)ke[u] * ks_reg[j], (float)ke[u + 1] * ks_reg[j],
-            (float)ke[u + 2] * ks_reg[j], (float)ke[u + 3] * ks_reg[j]);
-        *reinterpret_cast<float4*>(vd + u) = make_float4(
-            (float)ve[u] * vs_reg[j], (float)ve[u + 1] * vs_reg[j],
-            (float)ve[u + 2] * vs_reg[j], (float)ve[u + 3] * vs_reg[j]);
-      }
-    }
-  };
-
-  // PV tile of this thread: rows pv_r0.., columns pv_c.., positions of its slice
-  const int pv_c = (tid % kCols4) * 4;
-  const int pv_r0 = ((tid / kCols4) % kGroups) * kRows;
-  const int pv_split = tid / (kCols4 * kGroups);
-  float4 acc[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) acc[r] = make_float4(0.f, 0.f, 0.f, 0.f);
-
-  fetch(c_begin);
-  for (int c = c_begin; c < c_end; ++c) {
-    __syncthreads();  // the previous chunk's PV is done with K, V and weights
-    stage();
-    if (c + 1 < c_end) fetch(c + 1);
-    __syncthreads();
-
-    {  // scores: rows qk_r0..+3 at position t of the chunk
+    static_assert(kThreads == 2 * kT, "one scale word a thread");
+    {
+      const int kv = tid / kT;
       const int t = tid % kT;
-      const int qk_r0 = (tid / kT) * kRows;
-      const float* krow = k_sm + t * L::kKStride;
-      float dot[kRows] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll 8
-      for (int d = 0; d < HD; d += 4) {
-        const float4 kv = *reinterpret_cast<const float4*>(krow + d);
+      const int pos = pos0 + t;
+      const bool ok = pos < S;
+      const int64_t row = ((int64_t)b * S + (ok ? pos : 0)) * kvh + h;
+      const uintptr_t addr = (reinterpret_cast<uintptr_t>(kv ? v_s : k_s) + row * esize) &
+                             ~static_cast<uintptr_t>(3);
+      cp_async4(base + (kv ? L::kVs : L::kKs) + t * 4, reinterpret_cast<const void*>(addr),
+                ok ? 4 : 0);
+    }
+  };
+
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          const float4 qv = *reinterpret_cast<const float4*>(q_s + (qk_r0 + r) * HD + d);
-          dot[r] = fmaf(qv.x, kv.x, dot[r]);
-          dot[r] = fmaf(qv.y, kv.y, dot[r]);
-          dot[r] = fmaf(qv.z, kv.z, dot[r]);
-          dot[r] = fmaf(qv.w, kv.w, dot[r]);
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (c_begin + s < c_end) issue(c_begin + s, s);
+    cp_async_commit();
+  }
+
+  // q's A fragments, QT bf16 terms, while the first chunks arrive.  Lane
+  // (fg, fq) of k step ks holds rows fg and fg + 8 at the permuted
+  // columns d = fq hd/4 + 4 ks + e: e = 0, 1 are A's k = 2 fq + {0, 1},
+  // e = 2, 3 its k = 2 fq + {8, 9}.
+  for (int i = tid; i < kKSteps * 32; i += kThreads) {
+    const int ks = i / 32;
+    const int fl = i % 32;
+    const int fg = fl >> 2;
+    const int d0 = (fl & 3) * kKBytes + 4 * ks;
+    float x[2][4];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int row = fg + 8 * rr;
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        x[rr][e] = row < g ? load_f(q, (bh * g + row) * HD + d0 + e, QT == 1) : 0.f;
+    }
+#pragma unroll
+    for (int term = 0; term < QT; ++term) {
+      uint4 a;
+      a.x = pack_bf16(x[0][0], x[0][1]);
+      a.y = pack_bf16(x[1][0], x[1][1]);
+      a.z = pack_bf16(x[0][2], x[0][3]);
+      a.w = pack_bf16(x[1][2], x[1][3]);
+      qf[(term * kKSteps + ks) * 32 + fl] = a;
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) x[rr][e] -= bf16_round(x[rr][e]);
+    }
+  }
+
+  // this warp's running state: rows gid (index 0) and gid + 8 (index 1)
+  float acc[kNT][4];
+#pragma unroll
+  for (int nt = 0; nt < kNT; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+  float m_r[2] = {kMasked, kMasked};
+  float l_r[2] = {0.f, 0.f};
+  const int t0 = warp * kWarpT;                    // the warp's rows in a chunk
+
+  for (int c = c_begin; c < c_end; ++c) {
+    const int it = c - c_begin;
+    cp_async_wait<kStages - 2>();                  // chunk c has landed (this thread's part)
+    __syncthreads();                               // ... everyone's; chunk c - 1 is done
+    if (c + kStages - 1 < c_end) issue(c + kStages - 1, (it + kStages - 1) % kStages);
+    cp_async_commit();
+    const uint8_t* st = stages + (it % kStages) * L::kStage;
+    const uint8_t* k_sm = st + L::kK;
+    const uint8_t* v_sm = st + L::kV;
+    const uint32_t* ks_w = reinterpret_cast<const uint32_t*>(st + L::kKs);
+    const uint32_t* vs_w = reinterpret_cast<const uint32_t*>(st + L::kVs);
+
+    // QK^T over the warp's 16 positions: n-tile j holds positions t0 + 8 j + n
+    float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+    for (int kb = 0; kb < kKSteps; kb += kKLoad) {
+      uint32_t kw[2][kKLoad];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int off = tq * kKBytes + 4 * kb;
+        const uint8_t* p = k_sm + swz<HD>(t0 + 8 * j + gid, off >> 4) + (off & 15);
+        if constexpr (kKLoad == 4) {
+          const uint4 v = *reinterpret_cast<const uint4*>(p);
+          kw[j][0] = v.x, kw[j][1] = v.y, kw[j][2] = v.z, kw[j][3] = v.w;
+        } else if constexpr (kKLoad == 2) {
+          const uint2 v = *reinterpret_cast<const uint2*>(p);
+          kw[j][0] = v.x, kw[j][1] = v.y;
+        } else {
+          kw[j][0] = *reinterpret_cast<const uint32_t*>(p);
         }
       }
-      const bool masked = c * kT + t >= len;
 #pragma unroll
-      for (int r = 0; r < kRows; ++r)
-        p_s[(qk_r0 + r) * kT + t] = masked ? kMasked : dot[r] * scale;
-    }
-    __syncthreads();
-
-    {  // online softmax: one warp per 2 rows, 2 positions per lane
-      const int warp = tid >> 5;
-      const int lane = tid & 31;
-      const int p0 = c * kT + lane;
-      const int p1 = p0 + 32;
+      for (int w = 0; w < kKLoad; ++w) {
+        uint32_t bk[2][2];
 #pragma unroll
-      for (int rr = 0; rr < 2; ++rr) {
-        const int r = warp * 2 + rr;
-        float* pr = p_s + r * kT;
-        const float s0 = pr[lane];
-        const float s1 = pr[lane + 32];
-        // positions past S (a ragged last chunk) take no part at all
-        const float mx = warp_max(fmaxf(p0 < S ? s0 : kMasked, p1 < S ? s1 : kMasked));
-        const float m_prev = m_s[r];
-        const float m_new = fmaxf(m_prev, mx);
-        const float w0 = p0 < S ? expf(s0 - m_new) : 0.f;
-        const float w1 = p1 < S ? expf(s1 - m_new) : 0.f;
-        pr[lane] = w0;
-        pr[lane + 32] = w1;
-        const float sum = warp_sum(w0 + w1);
-        if (lane == 0) {
-          const float corr = expf(m_prev - m_new);
-          corr_s[r] = corr;
-          l_s[r] = l_s[r] * corr + sum;
-          m_s[r] = m_new;
-        }
-      }
-    }
-    __syncthreads();
-
-    {  // acc = acc * corr + weights @ V over this thread's slice of the chunk
+        for (int j = 0; j < 2; ++j) int8x4_to_bf16(kw[j][w] ^ 0x80808080u, bk[j][0], bk[j][1]);
+        if constexpr (QT == 1) {
+          const uint4 a4 = qf[(kb + w) * 32 + lane];
+          const uint32_t a[4] = {a4.x, a4.y, a4.z, a4.w};
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float cr = corr_s[pv_r0 + r];
-        acc[r].x *= cr;
-        acc[r].y *= cr;
-        acc[r].z *= cr;
-        acc[r].w *= cr;
-      }
-      const int t0 = pv_split * kTS;
-#pragma unroll 2
-      for (int t = t0; t < t0 + kTS; t += 4) {
-        float4 w[kRows];
+          for (int j = 0; j < 2; ++j) mma_bf16(sc[j], a, bk[j][0], bk[j][1]);
+        } else {
+          // the tensor cores truncate as they accumulate: an f32 q's k step
+          // sums its terms smallest first into a fresh fragment, which is
+          // then added to the score with a rounded f32 add
+          float part[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
 #pragma unroll
-        for (int r = 0; r < kRows; ++r)
-          w[r] = *reinterpret_cast<const float4*>(p_s + (pv_r0 + r) * kT + t);
+          for (int term = QT - 1; term >= 0; --term) {
+            const uint4 a4 = qf[(term * kKSteps + kb + w) * 32 + lane];
+            const uint32_t a[4] = {a4.x, a4.y, a4.z, a4.w};
 #pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const float4 vv = *reinterpret_cast<const float4*>(v_sm + (t + u) * HD + pv_c);
-#pragma unroll
-          for (int r = 0; r < kRows; ++r) {
-            const float wr = comp(w[r], u);
-            acc[r].x = fmaf(wr, vv.x, acc[r].x);
-            acc[r].y = fmaf(wr, vv.y, acc[r].y);
-            acc[r].z = fmaf(wr, vv.z, acc[r].z);
-            acc[r].w = fmaf(wr, vv.w, acc[r].w);
+            for (int j = 0; j < 2; ++j) mma_bf16(part[j], a, bk[j][0], bk[j][1]);
           }
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) sc[j][i] += part[j][i];
         }
+      }
+    }
+
+    // scores (scale after the product), mask, online softmax in f32.  The
+    // lane holds positions p = 8 j + 2 tq + e of rows gid (sc[j][e]) and
+    // gid + 8 (sc[j][2 + e]).
+    const int pbase = c * kT + t0;
+    float vsv[2][2];
+    float mx[2] = {kMasked, kMasked};
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int p = 8 * j + 2 * tq + e;
+        const int pos = pbase + p;
+        const unsigned row = ((unsigned)b * S + pos) * (unsigned)kvh + (unsigned)h;
+        const float ksv = scale_of(ks_w[t0 + p], s_bf16, (ks_half + row) & 1u);
+        vsv[j][e] = scale_of(vs_w[t0 + p], s_bf16, (vs_half + row) & 1u);
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const float s = pos < len ? sc[j][2 * rr + e] * ksv * scale : kMasked;
+          sc[j][2 * rr + e] = s;
+          if (pos < S) mx[rr] = fmaxf(mx[rr], s);
+        }
+      }
+    float corr[2];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 1));
+      mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 2));
+      const float m_new = fmaxf(m_r[rr], mx[rr]);
+      corr[rr] = expf(m_r[rr] - m_new);
+      m_r[rr] = m_new;
+    }
+    float lsum[2] = {0.f, 0.f};
+    float wv[2][4];                                // weights times v_s
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool in = pbase + 8 * j + 2 * tq + e < S;
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const float w = in ? expf(sc[j][2 * rr + e] - m_r[rr]) : 0.f;
+          lsum[rr] += w;
+          wv[j][2 * rr + e] = w * vsv[j][e];
+        }
+      }
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) l_r[rr] = l_r[rr] * corr[rr] + lsum[rr];
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) {
+      acc[nt][0] *= corr[0];
+      acc[nt][1] *= corr[0];
+      acc[nt][2] *= corr[1];
+      acc[nt][3] *= corr[1];
+    }
+    // the C fragments of QK^T are PV's A fragments (k = position): 2 bf16 terms
+    uint32_t a_hi[4], a_lo[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int j = i >> 1;
+      const int rr = i & 1;
+      const float w0 = wv[j][2 * rr], w1 = wv[j][2 * rr + 1];
+      a_hi[i] = pack_bf16(w0, w1);
+      a_lo[i] = pack_bf16(w0 - bf16_round(w0), w1 - bf16_round(w1));
+    }
+
+    // PV: lane reads kWB bytes at d = grp kGroupD + kWB gid of rows
+    // 2 tq + {0, 1, 8, 9} and transposes them: byte i is n-tile (grp, i)
+#pragma unroll
+    for (int grp = 0; grp < kGroups; ++grp) {
+      const int off = grp * kGroupD + kWB * gid;
+      uint32_t vw[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int t = t0 + 2 * tq + (r & 1) + (r >> 1) * 8;
+        const uint8_t* p = v_sm + swz<HD>(t, off >> 4) + (off & 15);
+        if constexpr (kWB == 4) vw[r] = *reinterpret_cast<const uint32_t*>(p);
+        else vw[r] = *reinterpret_cast<const uint16_t*>(p);
+        vw[r] ^= 0x80808080u;
+      }
+      uint32_t b0[4], b1[4];
+      int8x4_to_bf16(__byte_perm(vw[0], vw[1], 0x5140), b0[0], b0[1]);
+      int8x4_to_bf16(__byte_perm(vw[2], vw[3], 0x5140), b1[0], b1[1]);
+      if constexpr (kWB == 4) {
+        int8x4_to_bf16(__byte_perm(vw[0], vw[1], 0x7362), b0[2], b0[3]);
+        int8x4_to_bf16(__byte_perm(vw[2], vw[3], 0x7362), b1[2], b1[3]);
+      }
+#pragma unroll
+      for (int i = 0; i < kWB; ++i) {
+        mma_bf16(acc[grp * kWB + i], a_hi, b0[i], b1[i]);
+        mma_bf16(acc[grp * kWB + i], a_lo, b0[i], b1[i]);
       }
     }
   }
 
-  // sum the position slices into slice 0, one slice at a time (a fixed
-  // order: the result does not depend on scheduling), then write once
+  // the warps' states meet in shared memory (the stages are free now)
+  cp_async_wait<0>();
   __syncthreads();
-  float* red = q_s;
-  for (int s = 1; s < kSplit; ++s) {
-    if (pv_split == s) {
 #pragma unroll
-      for (int r = 0; r < kRows; ++r)
-        *reinterpret_cast<float4*>(red + (pv_r0 + r) * HD + pv_c) = acc[r];
-    }
-    __syncthreads();
-    if (pv_split == 0) {
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float4 o = *reinterpret_cast<const float4*>(red + (pv_r0 + r) * HD + pv_c);
-        acc[r].x += o.x;
-        acc[r].y += o.y;
-        acc[r].z += o.z;
-        acc[r].w += o.w;
-      }
-    }
-    __syncthreads();
+  for (int rr = 0; rr < 2; ++rr) {
+    l_r[rr] += __shfl_xor_sync(0xffffffffu, l_r[rr], 1);
+    l_r[rr] += __shfl_xor_sync(0xffffffffu, l_r[rr], 2);
   }
-  if (pv_split == 0) {
+  float* scratch = reinterpret_cast<float*>(stages);
+  float* w_out = scratch + warp * kG * HD;         // [kWarps][kG][HD]
+  float* w_m = scratch + kWarps * kG * HD;         // [kWarps][kG]
+  float* w_l = w_m + kWarps * kG;                  // [kWarps][kG]
+  float* corr_s = w_l + kWarps * kG;               // [kWarps][kG]
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int row = pv_r0 + r;
-      if (row < g)
-        *reinterpret_cast<float4*>(out + (sbh * g + row) * HD + pv_c) = acc[r];
-    }
+  for (int nt = 0; nt < kNT; ++nt) {
+    // C column n of n-tile (grp, i) is d = grp kGroupD + kWB n + i
+    const int d = (nt / kWB) * kGroupD + kWB * 2 * tq + nt % kWB;
+    w_out[gid * HD + d] = acc[nt][0];
+    w_out[gid * HD + d + kWB] = acc[nt][1];
+    w_out[(gid + 8) * HD + d] = acc[nt][2];
+    w_out[(gid + 8) * HD + d + kWB] = acc[nt][3];
   }
-  if (tid < g) {
-    m_out[sbh * g + tid] = m_s[tid];
-    l_out[sbh * g + tid] = l_s[tid];
+  if (tq == 0) {
+    w_m[warp * kG + gid] = m_r[0];
+    w_m[warp * kG + gid + 8] = m_r[1];
+    w_l[warp * kG + gid] = l_r[0];
+    w_l[warp * kG + gid + 8] = l_r[1];
+  }
+  __syncthreads();
+  if (tid < g) {  // merge the warps in a fixed order, warp 0 first
+    float mx = w_m[tid];
+    for (int w = 1; w < kWarps; ++w) mx = fmaxf(mx, w_m[w * kG + tid]);
+    float l = 0.f;
+    for (int w = 0; w < kWarps; ++w) {
+      const float cw = expf(w_m[w * kG + tid] - mx);
+      corr_s[w * kG + tid] = cw;
+      l += w_l[w * kG + tid] * cw;
+    }
+    m_out[sbh * g + tid] = mx;
+    l_out[sbh * g + tid] = l;
+  }
+  __syncthreads();
+  for (int i = tid; i < g * HD; i += kThreads) {
+    const int r = i / HD;
+    float o = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) o += scratch[w * kG * HD + i] * corr_s[w * kG + r];
+    out[sbh * g * HD + i] = o;
   }
 }
 
@@ -386,27 +563,38 @@ decode_attention_merge_kernel(const float* __restrict__ out_p, const float* __re
   }
 }
 
+template <int HD, int QT>
+cudaError_t launch_split(const void* q, const void* k_q, const void* k_s, const void* v_q,
+                         const void* v_s, int s_bf16, const void* length, float* out,
+                         float* m, float* l, int b, int S, int kvh, int g, int n_split,
+                         float scale, cudaStream_t stream) {
+  const size_t smem = Layout<HD>::bytes(QT);
+  cudaError_t err = cudaFuncSetAttribute(
+      decode_attention_kernel<HD, QT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  decode_attention_kernel<HD, QT><<<dim3(kvh, b, n_split), kThreads, smem, stream>>>(
+      q, static_cast<const int8_t*>(k_q), k_s, static_cast<const int8_t*>(v_q), v_s, s_bf16,
+      static_cast<const int32_t*>(length), out, m, l, b, S, kvh, g, n_split, scale);
+  return cudaGetLastError();
+}
+
 template <int HD>
 cudaError_t launch(const void* q, int q_bf16, const void* k_q, const void* k_s,
                    const void* v_q, const void* v_s, int s_bf16,
                    const void* length, void* out, void* m, void* l, void* ws_out,
                    void* ws_m, void* ws_l, int b, int S, int kvh, int g,
                    int n_split, float scale, cudaStream_t stream) {
-  const size_t smem = Layout<HD>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      decode_attention_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
   // one split writes the result itself; more write partials to merge
   const bool merge = n_split > 1;
-  dim3 grid(kvh, b, n_split);
-  decode_attention_kernel<HD><<<grid, kThreads, smem, stream>>>(
-      q, q_bf16, static_cast<const int8_t*>(k_q), k_s,
-      static_cast<const int8_t*>(v_q), v_s, s_bf16,
-      static_cast<const int32_t*>(length), static_cast<float*>(merge ? ws_out : out),
-      static_cast<float*>(merge ? ws_m : m), static_cast<float*>(merge ? ws_l : l),
-      b, S, kvh, g, n_split, scale);
-  err = cudaGetLastError();
+  float* o = static_cast<float*>(merge ? ws_out : out);
+  float* mm = static_cast<float*>(merge ? ws_m : m);
+  float* ll = static_cast<float*>(merge ? ws_l : l);
+  cudaError_t err =
+      q_bf16 ? launch_split<HD, 1>(q, k_q, k_s, v_q, v_s, s_bf16, length, o, mm, ll, b, S,
+                                   kvh, g, n_split, scale, stream)
+             : launch_split<HD, 3>(q, k_q, k_s, v_q, v_s, s_bf16, length, o, mm, ll, b, S,
+                                   kvh, g, n_split, scale, stream);
   if (err != cudaSuccess || !merge) return err;
   decode_attention_merge_kernel<<<dim3(kvh, b), kMergeThreads, 0, stream>>>(
       static_cast<const float*>(ws_out), static_cast<const float*>(ws_m),
