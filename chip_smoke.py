@@ -670,6 +670,17 @@ def da_work(q, k_q, k_s, v_q, v_s, length):
     return nbytes, 4 * b * kvh * g * n * hd
 
 
+def da_errs(got, want) -> dict:
+    """``DA_TOL``'s three errors of ``(out, m, l)`` against ``want``, in
+    f64: m absolute; l and out / l relative to 1 + |want|."""
+    out, m, l = (x.double() for x in got)
+    out_r, m_r, l_r = (x.double() for x in want)
+    o, o_r = out / l[..., None], out_r / l_r[..., None]
+    return {"m": float((m - m_r).abs().max().item()),
+            "l": float(((l - l_r).abs() / (1 + l_r.abs())).max().item()),
+            "out": float(((o - o_r).abs() / (1 + o_r.abs())).max().item())}
+
+
 def da_parity(torch, name, inputs, length, n_split=None) -> dict:
     """Decode-attention kernel vs its plain version on the card; raises
     past the JAX kernel test's tolerances.  ``n_split`` forces the
@@ -683,12 +694,7 @@ def da_parity(torch, name, inputs, length, n_split=None) -> dict:
                                             n_split=n_split)
     torch.cuda.synchronize()
     out_r, m_r, l_r = ref.fused_decode_attention_ref(*inputs, ln)
-    errs = {
-        "m": float((m - m_r).abs().max().item()),
-        "l": float(((l - l_r).abs() / (1 + l_r.abs())).max().item()),
-        "out": float(((out / l[..., None] - out_r / l_r[..., None]).abs()
-                      / (1 + (out_r / l_r[..., None]).abs())).max().item()),
-    }
+    errs = da_errs((out, m, l), (out_r, m_r, l_r))
     row = {"case": name, "shape": list(inputs[1].shape), "g": inputs[0].shape[2],
            "dtype": str(inputs[0].dtype).removeprefix("torch."), "length": length,
            "n_split": n_split,
@@ -718,6 +724,36 @@ def da_sdpa(torch, q, k_q, k_s, v_q, v_s, length):
     return library, 2 * kb.numel() * kb.element_size()
 
 
+def da_device_us(torch, timer, fn, reps: int = 10) -> dict:
+    """Median device time (µs) of each kernel ``fn`` launches, from
+    ``torch.profiler``, each call after the timer's L2 scrub; with two
+    kernels, also the span from the first's start to the second's end."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            timer.scrub.zero_()
+            fn()
+        torch.cuda.synchronize()
+    ours = sorted((e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and "decode_attention" in e.name), key=lambda e: e.time_range.start)
+    if not ours:
+        return {"note": "not measured (no CUDA events in the trace)"}
+    per = len(ours) // reps
+    out = {}
+    for e in ours:
+        key = "merge_kernel" if "merge" in e.name else "split_kernel"
+        out.setdefault(key, []).append(e.time_range.elapsed_us())
+    out = {k: statistics.median(v) for k, v in out.items()}
+    if per == 2:
+        out["span"] = statistics.median(ours[i + 1].time_range.end - ours[i].time_range.start
+                                        for i in range(0, len(ours) - 1, 2))
+    return out
+
+
 def da_timed(torch, timer, name, inputs, length, *, plain=True, library=True) -> dict:
     """Parity, then the kernel's time (split kernel and merge together)
     beside its bound, its plain version and SDPA, with the split count
@@ -728,6 +764,13 @@ def da_timed(torch, timer, name, inputs, length, *, plain=True, library=True) ->
     row = da_parity(torch, name, inputs, length)
     b, S, kvh, _ = inputs[1].shape
     ln = torch.tensor(length, dtype=torch.int32, device=DEVICE)
+    # the kernel and the f32 plain version each against the plain version
+    # in f64: how much of the parity error is the f32 oracle's own rounding
+    got = kda.fused_decode_attention_cuda(*inputs, ln)
+    f32 = ref.fused_decode_attention_ref(*inputs, ln)
+    f64 = ref.fused_decode_attention_ref(*inputs, ln, dtype=torch.float64)
+    row["errs_vs_f64"] = {"kernel": da_errs(got, f64), "plain_f32": da_errs(f32, f64)}
+    del got, f32, f64
     n_split = kda.choose_n_split(b, kvh, S, torch.cuda.get_device_properties(0).multi_processor_count)
     nbytes, flops = da_work(*inputs, length)
     # the products' inputs are bf16 (q, scales) and int8, on the tensor
@@ -739,6 +782,7 @@ def da_timed(torch, timer, name, inputs, length, *, plain=True, library=True) ->
                f32_ops_ms=flops / PEAK_FLOPS["float32"] * 1e3)
     row["ms"] = timer.ms(lambda: kda.fused_decode_attention_cuda(*inputs, ln))
     row["ms_one_split"] = timer.ms(lambda: kda.fused_decode_attention_cuda(*inputs, ln, n_split=1))
+    row["device_us"] = da_device_us(torch, timer, lambda: kda.fused_decode_attention_cuda(*inputs, ln))
     if plain:
         row["plain_ms"] = timer.ms(lambda: ref.fused_decode_attention_ref(*inputs, ln), reps=5)
     if library:
@@ -783,8 +827,8 @@ def phase_decode_kernel(torch, timer) -> dict:
     inputs = da_case(torch, gen, b, S, kvh, g, hd, torch.bfloat16)
     row = da_timed(torch, timer, "decode_32k", inputs, S)
     row["served_shape"] = {k: served[k] for k in (
-        "n_split", "kernels_per_call", "ms", "ms_one_split", "bound_ms", "GB_per_s",
-        "plain_ms", "library_ms")}
+        "n_split", "kernels_per_call", "ms", "ms_one_split", "device_us", "bound_ms",
+        "GB_per_s", "plain_ms", "library_ms")}
     del inputs
     torch.cuda.empty_cache()
     return row

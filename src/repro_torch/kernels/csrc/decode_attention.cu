@@ -34,16 +34,17 @@
 // * Both products run on mma.sync.m16n8k16 with bf16 inputs and f32
 //   accumulators.  The g <= 16 query rows fill m16 (rows past g are zero
 //   and never written).  int8 converts to bf16 exactly (|x| <= 128 needs
-//   8 significant bits), in registers, from 32-bit words: a byte is
-//   placed under the exponent of 2^23 (prmt), 2^23 + 128 is subtracted
-//   and the f32's upper half is the exact bf16.  So K and V enter the
-//   products unscaled:
+//   8 significant bits), in registers, from 32-bit words: a prmt puts
+//   two bytes in the two halves, two LOP3s build 128 + low7 and 128 or
+//   256 as bf16, and one bf16x2 subtraction leaves the exact values
+//   (int8x2_to_bf16).  So K and V enter the products unscaled:
 //     QK^T: s[t] = (q . k_int[t]) * k_s[t] * (1/sqrt(hd)), the scale
 //           applied to the f32 score after the product.  A bf16 q is one
 //           bf16 term; an f32 q is 3 (hi, mid, lo), which hold it to
-//           ~2^-24, summed smallest first per k step into a fresh
-//           fragment and then added in f32 (the tensor cores truncate as
-//           they accumulate).
+//           ~2^-24.  Each k step sums its terms, smallest first, into a
+//           fresh fragment that is then added to the score in f32: the
+//           tensor cores truncate as they accumulate, and a chain of
+//           k steps in one fragment costs m about 10 ulp at decode_32k.
 //     PV:   v_s[t] folded into the f32 weights, w'[r,t] = w[r,t] v_s[t],
 //           split into 2 bf16 terms; l sums the unscaled f32 weights.
 //   The online softmax stays in f32.
@@ -53,9 +54,9 @@
 //   permutation applied to q's fragments, prepared once in shared
 //   memory); in PV, the weights' C fragments from QK^T are reused as A
 //   fragments directly (positions are the k index), and a lane reads one
-//   32-bit word of each of its 4 V rows and transposes the bytes with 4
-//   prmt, so d = 32 grp + 4 gid + i is output column gid of n-tile
-//   (grp, i).
+//   32-bit word of each of its 4 V rows and gathers byte i of each with
+//   one prmt a row pair, so d = 32 grp + 4 gid + i is output column gid
+//   of n-tile (grp, i).
 // * K and V chunks come into shared memory by cp.async (16-byte copies,
 //   the scales by 4-byte copies of the word that holds them) in a
 //   kStages-deep ring.  Rows are hd bytes with their 16-byte chunks
@@ -129,17 +130,23 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Four int8 in a word (already XORed with 0x80808080) as two exact bf16
-// pairs: lo = bytes (0, 1), hi = bytes (2, 3), lower byte in the lower half.
-__device__ __forceinline__ void int8x4_to_bf16(uint32_t u, uint32_t& lo, uint32_t& hi) {
-  constexpr float kBias = 8388736.f;  // 2^23 + 128
-  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540)) - kBias;
-  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541)) - kBias;
-  const float f2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7542)) - kBias;
-  const float f3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7543)) - kBias;
-  // |x| <= 128: the f32's lower 16 bits are zero, its upper half is the bf16
-  lo = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
-  hi = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
+// Two int8 as an exact bf16 pair: byte x0 in bits 0-7 and x1 in bits
+// 16-23 of p (the other bits are ignored).  With x = low7 - 128 b7, the
+// bf16 0x4300 | low7 is 128 + low7 (bf16 spaces [128, 256) by 1), and
+// 0x4300 | (b7 << 7) is 128 or 256; their difference is x, exactly.
+__device__ __forceinline__ uint32_t int8x2_to_bf16(uint32_t p) {
+  const uint32_t y = (p & 0x007F007Fu) | 0x43004300u;
+  const uint32_t sub = (p & 0x00800080u) | 0x43004300u;
+  const __nv_bfloat162 d = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&y),
+                                   *reinterpret_cast<const __nv_bfloat162*>(&sub));
+  return *reinterpret_cast<const uint32_t*>(&d);
+}
+
+// Four int8 in a word as two exact bf16 pairs: lo = bytes (0, 1), hi =
+// bytes (2, 3), the lower byte in the lower half.
+__device__ __forceinline__ void int8x4_to_bf16(uint32_t w, uint32_t& lo, uint32_t& hi) {
+  lo = int8x2_to_bf16(__byte_perm(w, 0u, 0x4140));
+  hi = int8x2_to_bf16(__byte_perm(w, 0u, 0x4342));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
@@ -222,6 +229,27 @@ decode_attention_kernel(const void* __restrict__ q, const int8_t* __restrict__ k
   // this split's partial (out, m, l): [split][b][h][row]
   const int64_t sbh = ((int64_t)split * b_count + b) * kvh + h;
 
+  // q's values for this thread's fragment entries, loaded while length
+  // is read.  Entry i = 32 ks + lane (fg, fq) of k step ks holds rows fg
+  // and fg + 8 at the permuted columns d = fq hd/4 + 4 ks + e: e = 0, 1
+  // are A's k = 2 fq + {0, 1}, e = 2, 3 its k = 2 fq + {8, 9}.
+  constexpr int kQE = (kKSteps * 32 + kThreads - 1) / kThreads;
+  float qx[kQE][2][4];
+#pragma unroll
+  for (int k = 0; k < kQE; ++k) {
+    const int i = tid + k * kThreads;
+    const int fg = (i % 32) >> 2;
+    const int d0 = (i % 4) * kKBytes + 4 * (i / 32);
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = fg + 8 * rr;
+        qx[k][rr][e] = i < kKSteps * 32 && row < g
+                           ? load_f(q, (bh * g + row) * HD + d0 + e, QT == 1) : 0.f;
+      }
+  }
+
   const int len = *length;
   // length <= 0: every position is masked and every one carries weight 1
   const int visit = len <= 0 ? S : min(len, S);
@@ -272,35 +300,23 @@ decode_attention_kernel(const void* __restrict__ q, const int8_t* __restrict__ k
     cp_async_commit();
   }
 
-  // q's A fragments, QT bf16 terms, while the first chunks arrive.  Lane
-  // (fg, fq) of k step ks holds rows fg and fg + 8 at the permuted
-  // columns d = fq hd/4 + 4 ks + e: e = 0, 1 are A's k = 2 fq + {0, 1},
-  // e = 2, 3 its k = 2 fq + {8, 9}.
-  for (int i = tid; i < kKSteps * 32; i += kThreads) {
-    const int ks = i / 32;
-    const int fl = i % 32;
-    const int fg = fl >> 2;
-    const int d0 = (fl & 3) * kKBytes + 4 * ks;
-    float x[2][4];
+  // q's A fragments, QT bf16 terms, while the first chunks arrive
 #pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      const int row = fg + 8 * rr;
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        x[rr][e] = row < g ? load_f(q, (bh * g + row) * HD + d0 + e, QT == 1) : 0.f;
-    }
+  for (int k = 0; k < kQE; ++k) {
+    const int i = tid + k * kThreads;
+    if (i >= kKSteps * 32) break;
 #pragma unroll
     for (int term = 0; term < QT; ++term) {
       uint4 a;
-      a.x = pack_bf16(x[0][0], x[0][1]);
-      a.y = pack_bf16(x[1][0], x[1][1]);
-      a.z = pack_bf16(x[0][2], x[0][3]);
-      a.w = pack_bf16(x[1][2], x[1][3]);
-      qf[(term * kKSteps + ks) * 32 + fl] = a;
+      a.x = pack_bf16(qx[k][0][0], qx[k][0][1]);
+      a.y = pack_bf16(qx[k][1][0], qx[k][1][1]);
+      a.z = pack_bf16(qx[k][0][2], qx[k][0][3]);
+      a.w = pack_bf16(qx[k][1][2], qx[k][1][3]);
+      qf[(term * kKSteps + i / 32) * 32 + i % 32] = a;
 #pragma unroll
       for (int rr = 0; rr < 2; ++rr)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) x[rr][e] -= bf16_round(x[rr][e]);
+        for (int e = 0; e < 4; ++e) qx[k][rr][e] -= bf16_round(qx[k][rr][e]);
     }
   }
 
@@ -347,29 +363,22 @@ decode_attention_kernel(const void* __restrict__ q, const int8_t* __restrict__ k
       for (int w = 0; w < kKLoad; ++w) {
         uint32_t bk[2][2];
 #pragma unroll
-        for (int j = 0; j < 2; ++j) int8x4_to_bf16(kw[j][w] ^ 0x80808080u, bk[j][0], bk[j][1]);
-        if constexpr (QT == 1) {
-          const uint4 a4 = qf[(kb + w) * 32 + lane];
+        for (int j = 0; j < 2; ++j) int8x4_to_bf16(kw[j][w], bk[j][0], bk[j][1]);
+        // the tensor cores truncate as they accumulate: each k step sums
+        // its terms (smallest first) into a fresh fragment, which is added
+        // to the score with a rounded f32 add
+        float part[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+        for (int term = QT - 1; term >= 0; --term) {
+          const uint4 a4 = qf[(term * kKSteps + kb + w) * 32 + lane];
           const uint32_t a[4] = {a4.x, a4.y, a4.z, a4.w};
 #pragma unroll
-          for (int j = 0; j < 2; ++j) mma_bf16(sc[j], a, bk[j][0], bk[j][1]);
-        } else {
-          // the tensor cores truncate as they accumulate: an f32 q's k step
-          // sums its terms smallest first into a fresh fragment, which is
-          // then added to the score with a rounded f32 add
-          float part[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-#pragma unroll
-          for (int term = QT - 1; term >= 0; --term) {
-            const uint4 a4 = qf[(term * kKSteps + kb + w) * 32 + lane];
-            const uint32_t a[4] = {a4.x, a4.y, a4.z, a4.w};
-#pragma unroll
-            for (int j = 0; j < 2; ++j) mma_bf16(part[j], a, bk[j][0], bk[j][1]);
-          }
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-#pragma unroll
-            for (int i = 0; i < 4; ++i) sc[j][i] += part[j][i];
+          for (int j = 0; j < 2; ++j) mma_bf16(part[j], a, bk[j][0], bk[j][1]);
         }
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) sc[j][i] += part[j][i];
       }
     }
 
@@ -401,7 +410,7 @@ decode_attention_kernel(const void* __restrict__ q, const int8_t* __restrict__ k
       mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 1));
       mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 2));
       const float m_new = fmaxf(m_r[rr], mx[rr]);
-      corr[rr] = expf(m_r[rr] - m_new);
+      corr[rr] = __expf(m_r[rr] - m_new);
       m_r[rr] = m_new;
     }
     float lsum[2] = {0.f, 0.f};
@@ -413,19 +422,21 @@ decode_attention_kernel(const void* __restrict__ q, const int8_t* __restrict__ k
         const bool in = pbase + 8 * j + 2 * tq + e < S;
 #pragma unroll
         for (int rr = 0; rr < 2; ++rr) {
-          const float w = in ? expf(sc[j][2 * rr + e] - m_r[rr]) : 0.f;
+          const float w = in ? __expf(sc[j][2 * rr + e] - m_r[rr]) : 0.f;
           lsum[rr] += w;
           wv[j][2 * rr + e] = w * vsv[j][e];
         }
       }
 #pragma unroll
     for (int rr = 0; rr < 2; ++rr) l_r[rr] = l_r[rr] * corr[rr] + lsum[rr];
+    if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {  // a max moved
 #pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) {
-      acc[nt][0] *= corr[0];
-      acc[nt][1] *= corr[0];
-      acc[nt][2] *= corr[1];
-      acc[nt][3] *= corr[1];
+      for (int nt = 0; nt < kNT; ++nt) {
+        acc[nt][0] *= corr[0];
+        acc[nt][1] *= corr[0];
+        acc[nt][2] *= corr[1];
+        acc[nt][3] *= corr[1];
+      }
     }
     // the C fragments of QK^T are PV's A fragments (k = position): 2 bf16 terms
     uint32_t a_hi[4], a_lo[4];
@@ -450,19 +461,14 @@ decode_attention_kernel(const void* __restrict__ q, const int8_t* __restrict__ k
         const uint8_t* p = v_sm + swz<HD>(t, off >> 4) + (off & 15);
         if constexpr (kWB == 4) vw[r] = *reinterpret_cast<const uint32_t*>(p);
         else vw[r] = *reinterpret_cast<const uint16_t*>(p);
-        vw[r] ^= 0x80808080u;
-      }
-      uint32_t b0[4], b1[4];
-      int8x4_to_bf16(__byte_perm(vw[0], vw[1], 0x5140), b0[0], b0[1]);
-      int8x4_to_bf16(__byte_perm(vw[2], vw[3], 0x5140), b1[0], b1[1]);
-      if constexpr (kWB == 4) {
-        int8x4_to_bf16(__byte_perm(vw[0], vw[1], 0x7362), b0[2], b0[3]);
-        int8x4_to_bf16(__byte_perm(vw[2], vw[3], 0x7362), b1[2], b1[3]);
       }
 #pragma unroll
       for (int i = 0; i < kWB; ++i) {
-        mma_bf16(acc[grp * kWB + i], a_hi, b0[i], b1[i]);
-        mma_bf16(acc[grp * kWB + i], a_lo, b0[i], b1[i]);
+        // byte i of rows (0, 1) and of rows (2, 3) into bits 0-7 and 16-23
+        const uint32_t b0 = int8x2_to_bf16(__byte_perm(vw[0], vw[1], 0x0400 + i * 0x0101));
+        const uint32_t b1 = int8x2_to_bf16(__byte_perm(vw[2], vw[3], 0x0400 + i * 0x0101));
+        mma_bf16(acc[grp * kWB + i], a_hi, b0, b1);
+        mma_bf16(acc[grp * kWB + i], a_lo, b0, b1);
       }
     }
   }
@@ -521,45 +527,47 @@ decode_attention_kernel(const void* __restrict__ q, const int8_t* __restrict__ k
 // Merges the splits' partials of one (b, h) in a fixed order, split 0
 // first: M = max m_i, l = sum l_i exp(m_i - M), out = sum out_i exp(m_i - M).
 // It recomputes from length which splits did work, as the split kernel
-// decided it, so empty splits (never written) are never read.
+// decided it, so empty splits (never written) are never read.  One thread
+// per float4 of the output; grid (kvh, b, ceil(g hd / 4 / kMergeThreads)).
 __global__ void __launch_bounds__(kMergeThreads)
 decode_attention_merge_kernel(const float* __restrict__ out_p, const float* __restrict__ m_p,
                               const float* __restrict__ l_p, const int32_t* __restrict__ length,
                               float* __restrict__ out, float* __restrict__ m_out,
                               float* __restrict__ l_out, int b_count, int S, int kvh,
                               int g, int hd, int n_split) {
+  const int cols4 = hd / 4;
+  const int i = blockIdx.z * kMergeThreads + threadIdx.x;
+  if (i >= g * cols4) return;
   const int h = blockIdx.x;
   const int b = blockIdx.y;
-  const int64_t bh = (int64_t)b * kvh + h;
   const int64_t stride = (int64_t)b_count * kvh * g;  // one split's (m, l)
   const int len = *length;
   const int visit = len <= 0 ? S : min(len, S);
   const int n_chunks = (visit + kT - 1) / kT;
   const int per = (n_chunks + n_split - 1) / n_split;
   const int n_work = (n_chunks + per - 1) / per;
-  const int cols4 = hd / 4;
-  for (int i = threadIdx.x; i < g * cols4; i += kMergeThreads) {
-    const int r = i / cols4;
-    const int c = (i % cols4) * 4;
-    const int64_t row = bh * g + r;
-    float mx = m_p[row];
-    for (int s = 1; s < n_work; ++s) mx = fmaxf(mx, m_p[s * stride + row]);
-    float l = 0.f;
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int s = 0; s < n_work; ++s) {
-      const float corr = expf(m_p[s * stride + row] - mx);
-      l += l_p[s * stride + row] * corr;
-      const float4 o = *reinterpret_cast<const float4*>(out_p + (s * stride + row) * hd + c);
-      acc.x += o.x * corr;
-      acc.y += o.y * corr;
-      acc.z += o.z * corr;
-      acc.w += o.w * corr;
-    }
-    *reinterpret_cast<float4*>(out + row * hd + c) = acc;
-    if (c == 0) {
-      m_out[row] = mx;
-      l_out[row] = l;
-    }
+  const int r = i / cols4;
+  const int c = (i % cols4) * 4;
+  const int64_t row = ((int64_t)b * kvh + h) * g + r;
+  float mx = m_p[row];
+#pragma unroll 4
+  for (int s = 1; s < n_work; ++s) mx = fmaxf(mx, m_p[s * stride + row]);
+  float l = 0.f;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+  for (int s = 0; s < n_work; ++s) {
+    const float corr = expf(m_p[s * stride + row] - mx);
+    l += l_p[s * stride + row] * corr;
+    const float4 o = *reinterpret_cast<const float4*>(out_p + (s * stride + row) * hd + c);
+    acc.x += o.x * corr;
+    acc.y += o.y * corr;
+    acc.z += o.z * corr;
+    acc.w += o.w * corr;
+  }
+  *reinterpret_cast<float4*>(out + row * hd + c) = acc;
+  if (c == 0) {
+    m_out[row] = mx;
+    l_out[row] = l;
   }
 }
 
@@ -569,10 +577,19 @@ cudaError_t launch_split(const void* q, const void* k_q, const void* k_s, const 
                          float* m, float* l, int b, int S, int kvh, int g, int n_split,
                          float scale, cudaStream_t stream) {
   const size_t smem = Layout<HD>::bytes(QT);
-  cudaError_t err = cudaFuncSetAttribute(
-      decode_attention_kernel<HD, QT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  // the shared-memory limit is raised once a device (a host call a launch
+  // would otherwise pay every time)
+  static unsigned long long raised = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
+  if (dev >= 64 || !(raised >> dev & 1ull)) {
+    err = cudaFuncSetAttribute(decode_attention_kernel<HD, QT>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    if (dev < 64) raised |= 1ull << dev;
+  }
   decode_attention_kernel<HD, QT><<<dim3(kvh, b, n_split), kThreads, smem, stream>>>(
       q, static_cast<const int8_t*>(k_q), k_s, static_cast<const int8_t*>(v_q), v_s, s_bf16,
       static_cast<const int32_t*>(length), out, m, l, b, S, kvh, g, n_split, scale);
@@ -596,7 +613,9 @@ cudaError_t launch(const void* q, int q_bf16, const void* k_q, const void* k_s,
              : launch_split<HD, 3>(q, k_q, k_s, v_q, v_s, s_bf16, length, o, mm, ll, b, S,
                                    kvh, g, n_split, scale, stream);
   if (err != cudaSuccess || !merge) return err;
-  decode_attention_merge_kernel<<<dim3(kvh, b), kMergeThreads, 0, stream>>>(
+  const int items = g * (HD / 4);
+  const dim3 grid(kvh, b, (items + kMergeThreads - 1) / kMergeThreads);
+  decode_attention_merge_kernel<<<grid, kMergeThreads, 0, stream>>>(
       static_cast<const float*>(ws_out), static_cast<const float*>(ws_m),
       static_cast<const float*>(ws_l), static_cast<const int32_t*>(length),
       static_cast<float*>(out), static_cast<float*>(m), static_cast<float*>(l),

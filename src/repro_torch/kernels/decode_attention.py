@@ -153,12 +153,14 @@ def fused_decode_attention_cuda(
     if n_split is None:
         n_split = choose_n_split(b, kvh, S, _sm_count(device.index or 0))
     n_split = min(n_split, math.ceil(S / _ref.DECODE_CHUNK))
-    if n_split > 1:  # f32 partials of every split, merged by the second kernel
-        ws_out = torch.empty((n_split, b, kvh, g, hd), dtype=torch.float32, device=device)
-        ws_ml = torch.empty((2, n_split, b, kvh, g), dtype=torch.float32, device=device)
-        ws = (ws_out.data_ptr(), ws_ml[0].data_ptr(), ws_ml[1].data_ptr())
-    else:
-        ws = (None, None, None)
+    ws = (None, None, None)
+    if n_split > 1:
+        # f32 partials of every split, merged by the second kernel: out
+        # (n_split, b, kvh, g, hd), then m and l (n_split, b, kvh, g) each
+        rows = n_split * b * kvh * g
+        work = torch.empty(rows * (hd + 2), dtype=torch.float32, device=device)
+        base = work.data_ptr()
+        ws = (base, base + 4 * rows * hd, base + 4 * rows * (hd + 1))
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.decode_attention_launch(

@@ -57,7 +57,7 @@ def embedding_bag_ref(
     return (take * (indices >= 0)[..., None]).sum(dim=1).to(table.dtype)
 
 
-def fused_decode_attention_ref(q, k_q, k_s, v_q, v_s, length):
+def fused_decode_attention_ref(q, k_q, k_s, v_q, v_s, length, *, dtype=torch.float32):
     """Cache half of one decode step's attention over an int8 K/V cache:
     dequantize the whole cache and run a masked softmax in one shot.
 
@@ -66,12 +66,14 @@ def fused_decode_attention_ref(q, k_q, k_s, v_q, v_s, length):
     never -inf, so ``length = 0`` gives ``m = -1e30``, ``l = S`` and
     ``out = Σ v``).  Returns the unnormalized ``out`` (b, kvh, g, hd) f32,
     the row max ``m`` and the denominator ``l`` (b, kvh, g) f32.
+    ``dtype=torch.float64`` computes (and returns) all of it in f64, as
+    a yardstick of the f32 version's own rounding.
     """
     b, S, kvh, hd = k_q.shape
-    k = k_q.float() * k_s.float()[..., None]
-    v = v_q.float() * v_s.float()[..., None]
+    k = k_q.to(dtype) * k_s.to(dtype)[..., None]
+    v = v_q.to(dtype) * v_s.to(dtype)[..., None]
     scale = 1.0 / (hd ** 0.5)
-    s = torch.einsum("bkgd,btkd->bkgt", q.float(), k) * scale
+    s = torch.einsum("bkgd,btkd->bkgt", q.to(dtype), k) * scale
     mask = torch.arange(S, device=k_q.device)[None, None, None, :] < length
     s = torch.where(mask, s, torch.full_like(s, -1e30))
     m = s.amax(dim=-1)

@@ -257,3 +257,14 @@ def test_wrapper_takes_n_split_and_checks_it():
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     with pytest.raises(ValueError, match="n_split"):
         fused_decode_attention_cuda(*tt, block_s=256, n_split=0)
+
+
+@pytest.mark.parametrize("length", [0, 1, 200])
+def test_ref_in_f64_agrees_with_f32(length):
+    """``dtype=torch.float64``: the same plain version in f64 (the
+    yardstick ``chip_smoke.py`` reads the f32 version's rounding against)."""
+    _, tt = _both(_case(2, 256, 2, 4, 64, seed=9), length)
+    got = fused_decode_attention_ref(*tt)
+    want = fused_decode_attention_ref(*tt, dtype=torch.float64)
+    assert all(x.dtype == torch.float64 for x in want)
+    _check([x.numpy() for x in got], [x.numpy() for x in want])
