@@ -754,7 +754,7 @@ def da_device_us(torch, timer, fn, reps: int = 10) -> dict:
     return out
 
 
-def da_timed(torch, timer, name, inputs, length, *, plain=True, library=True) -> dict:
+def da_timed(torch, timer, name, inputs, length) -> dict:
     """Parity, then the kernel's time (split kernel and merge together)
     beside its bound, its plain version and SDPA, with the split count
     the host rule gave and the device kernels a call launches."""
@@ -783,14 +783,12 @@ def da_timed(torch, timer, name, inputs, length, *, plain=True, library=True) ->
     row["ms"] = timer.ms(lambda: kda.fused_decode_attention_cuda(*inputs, ln))
     row["ms_one_split"] = timer.ms(lambda: kda.fused_decode_attention_cuda(*inputs, ln, n_split=1))
     row["device_us"] = da_device_us(torch, timer, lambda: kda.fused_decode_attention_cuda(*inputs, ln))
-    if plain:
-        row["plain_ms"] = timer.ms(lambda: ref.fused_decode_attention_ref(*inputs, ln), reps=5)
-    if library:
-        lib_fn, row["library_bytes"] = da_sdpa(torch, *inputs, length)
-        out, _, l = kda.fused_decode_attention_cuda(*inputs, ln)
-        row["library_max_abs_err"] = float((lib_fn().float() - out / l[..., None]).abs().max().item())
-        row["library_ms"] = timer.ms(lib_fn)
-        del lib_fn, out, l
+    row["plain_ms"] = timer.ms(lambda: ref.fused_decode_attention_ref(*inputs, ln), reps=5)
+    lib_fn, row["library_bytes"] = da_sdpa(torch, *inputs, length)
+    out, _, l = kda.fused_decode_attention_cuda(*inputs, ln)
+    row["library_max_abs_err"] = float((lib_fn().float() - out / l[..., None]).abs().max().item())
+    row["library_ms"] = timer.ms(lib_fn)
+    del lib_fn, out, l
     row["GB_per_s"] = nbytes / row["ms"] / 1e6
     log(f"da-{name}", json.dumps(row))
     return row

@@ -150,9 +150,13 @@ def fused_decode_attention_split_ref(q, k_q, k_s, v_q, v_s, length, n_split,
     ``(out, m, l)``, merged in a fixed order (split 0 first) with
     ``M = max m_i``, ``l = Σ l_i exp(m_i - M)``, ``out = Σ out_i exp(m_i - M)``.
 
-    ``tensor_core=True`` also repeats the kernel's arithmetic (see
-    :func:`fused_decode_attention_tc_ref`).  ``length`` is read on the
-    host here; the kernel reads it on the device.
+    ``tensor_core=True`` also repeats the kernel's tensor-core
+    arithmetic: int8 K and V enter the products unscaled (they are exact
+    in bf16); q enters as one bf16 term if it is bf16, else as 3 (hi,
+    mid, lo); scores are summed in f32 and scaled by ``k_s`` and
+    ``1/sqrt(hd)`` after the product; ``l`` sums the unscaled f32
+    weights; the weights times ``v_s`` enter PV as 2 bf16 terms.
+    ``length`` is read on the host here; the kernel reads it on the device.
     """
     S = k_q.shape[1]
     parts = [_decode_partial(q, k_q, k_s, v_q, v_s, length, lo, hi, tensor_core)
@@ -167,14 +171,3 @@ def fused_decode_attention_split_ref(q, k_q, k_s, v_q, v_s, length, n_split,
         l = l + l_i * c
         out = out + out_i * c[..., None]
     return out, big_m, l
-
-
-def fused_decode_attention_tc_ref(q, k_q, k_s, v_q, v_s, length, n_split=1):
-    """The flash-decode kernel's tensor-core arithmetic in plain torch:
-    int8 K and V enter the products unscaled (they are exact in bf16);
-    q enters as one bf16 term if it is bf16, else as 3 (hi, mid, lo);
-    scores are summed in f32 and scaled by ``k_s`` and ``1/sqrt(hd)``
-    after the product; ``l`` sums the unscaled f32 weights; the weights
-    times ``v_s`` enter PV as 2 bf16 terms."""
-    return fused_decode_attention_split_ref(q, k_q, k_s, v_q, v_s, length, n_split,
-                                            tensor_core=True)

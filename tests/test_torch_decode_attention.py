@@ -10,8 +10,8 @@ the CPU.
 * the wrapper's contract errors and its launch count on the CPU;
 * the CUDA kernel's split-S rule and fixed-order merge
   (``fused_decode_attention_split_ref``) and its tensor-core arithmetic
-  (``fused_decode_attention_tc_ref``: bf16 terms, f32 sums, scales after
-  the products) against JAX's oracle at every n_split and length the
+  (``tensor_core=True``: bf16 terms, f32 sums, scales after the
+  products) against JAX's oracle at every n_split and length the
   kernel distinguishes, length 0 included; the bf16 term split; the
   wrapper's split rule.
 
@@ -30,11 +30,7 @@ from repro.kernels import fused_decode_attention_pallas
 from repro.kernels import fused_decode_attention_ref as j_ref
 from repro_torch.convert import _tensor
 from repro_torch.kernels import fused_decode_attention_cuda, fused_decode_attention_ref
-from repro_torch.kernels.ref import (
-    fused_decode_attention_split_ref,
-    fused_decode_attention_tc_ref,
-    split_bf16,
-)
+from repro_torch.kernels.ref import fused_decode_attention_split_ref, split_bf16
 
 SHAPES = [  # (b, S, kvh, g, hd, block_s): tests/test_decode_kernel.py's
     (1, 256, 1, 1, 128, 128),
@@ -181,7 +177,7 @@ def test_tensor_core_ref_matches_jax_ref(n_split, length, dtype):
     """bf16 terms (q: 1 if bf16 else 3; weights: 2), f32 sums, scales
     after the products: within the kernel test's tolerances."""
     jx, tt = _both(_split_inputs(dtype), length)
-    got = fused_decode_attention_tc_ref(*tt, n_split)
+    got = fused_decode_attention_split_ref(*tt, n_split, tensor_core=True)
     assert all(x.dtype == torch.float32 for x in got)
     _check([x.numpy() for x in got], j_ref(*jx))
 
@@ -244,7 +240,8 @@ def test_split_ref_matches_pallas_interpret(n_split):
     jx, tt = _both(arrays, length)
     want = fused_decode_attention_pallas(*jx, block_s=block_s, interpret=True)
     _check([x.numpy() for x in fused_decode_attention_split_ref(*tt, n_split)], want)
-    _check([x.numpy() for x in fused_decode_attention_tc_ref(*tt, n_split)], want)
+    _check([x.numpy() for x in fused_decode_attention_split_ref(*tt, n_split, tensor_core=True)],
+           want)
 
 
 def test_wrapper_takes_n_split_and_checks_it():
