@@ -229,6 +229,27 @@ decode_attention_kernel(const void* __restrict__ q, const int8_t* __restrict__ k
   // this split's partial (out, m, l): [split][b][h][row]
   const int64_t sbh = ((int64_t)split * b_count + b) * kvh + h;
 
+  // q's values for this thread's fragment entries, loaded while length
+  // is read.  Entry i = 32 ks + lane (fg, fq) of k step ks holds rows fg
+  // and fg + 8 at the permuted columns d = fq hd/4 + 4 ks + e: e = 0, 1
+  // are A's k = 2 fq + {0, 1}, e = 2, 3 its k = 2 fq + {8, 9}.
+  constexpr int kQE = (kKSteps * 32 + kThreads - 1) / kThreads;
+  float qx[kQE][2][4];
+#pragma unroll
+  for (int k = 0; k < kQE; ++k) {
+    const int i = tid + k * kThreads;
+    const int fg = (i % 32) >> 2;
+    const int d0 = (i % 4) * kKBytes + 4 * (i / 32);
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = fg + 8 * rr;
+        qx[k][rr][e] = i < kKSteps * 32 && row < g
+                           ? load_f(q, (bh * g + row) * HD + d0 + e, QT == 1) : 0.f;
+      }
+  }
+
   const int len = *length;
   // length <= 0: every position is masked and every one carries weight 1
   const int visit = len <= 0 ? S : min(len, S);
@@ -279,33 +300,23 @@ decode_attention_kernel(const void* __restrict__ q, const int8_t* __restrict__ k
     cp_async_commit();
   }
 
-  // q's A fragments, QT bf16 terms, while the first chunks arrive.  Lane
-  // (fg, fq) of k step ks holds rows fg and fg + 8 at the permuted
-  // columns d = fq hd/4 + 4 ks + e: e = 0, 1 are A's k = 2 fq + {0, 1},
-  // e = 2, 3 its k = 2 fq + {8, 9}.
-  for (int i = tid; i < kKSteps * 32; i += kThreads) {
-    const int fg = (i % 32) >> 2;
-    const int d0 = (i % 4) * kKBytes + 4 * (i / 32);
-    float x[2][4];
+  // q's A fragments, QT bf16 terms, while the first chunks arrive
 #pragma unroll
-    for (int rr = 0; rr < 2; ++rr)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = fg + 8 * rr;
-        x[rr][e] = row < g ? load_f(q, (bh * g + row) * HD + d0 + e, QT == 1) : 0.f;
-      }
+  for (int k = 0; k < kQE; ++k) {
+    const int i = tid + k * kThreads;
+    if (i >= kKSteps * 32) break;
 #pragma unroll
     for (int term = 0; term < QT; ++term) {
       uint4 a;
-      a.x = pack_bf16(x[0][0], x[0][1]);
-      a.y = pack_bf16(x[1][0], x[1][1]);
-      a.z = pack_bf16(x[0][2], x[0][3]);
-      a.w = pack_bf16(x[1][2], x[1][3]);
+      a.x = pack_bf16(qx[k][0][0], qx[k][0][1]);
+      a.y = pack_bf16(qx[k][1][0], qx[k][1][1]);
+      a.z = pack_bf16(qx[k][0][2], qx[k][0][3]);
+      a.w = pack_bf16(qx[k][1][2], qx[k][1][3]);
       qf[(term * kKSteps + i / 32) * 32 + i % 32] = a;
 #pragma unroll
       for (int rr = 0; rr < 2; ++rr)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) x[rr][e] -= bf16_round(x[rr][e]);
+        for (int e = 0; e < 4; ++e) qx[k][rr][e] -= bf16_round(qx[k][rr][e]);
     }
   }
 
@@ -418,12 +429,15 @@ decode_attention_kernel(const void* __restrict__ q, const int8_t* __restrict__ k
       }
 #pragma unroll
     for (int rr = 0; rr < 2; ++rr) l_r[rr] = l_r[rr] * corr[rr] + lsum[rr];
+    // rescale only when a row's max moved: at long lengths it rarely does
+    if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
 #pragma unroll
-    for (int nt = 0; nt < kNT; ++nt) {
-      acc[nt][0] *= corr[0];
-      acc[nt][1] *= corr[0];
-      acc[nt][2] *= corr[1];
-      acc[nt][3] *= corr[1];
+      for (int nt = 0; nt < kNT; ++nt) {
+        acc[nt][0] *= corr[0];
+        acc[nt][1] *= corr[0];
+        acc[nt][2] *= corr[1];
+        acc[nt][3] *= corr[1];
+      }
     }
     // the C fragments of QK^T are PV's A fragments (k = position): 2 bf16 terms
     uint32_t a_hi[4], a_lo[4];
