@@ -66,8 +66,8 @@ def fused_decode_attention_ref(q, k_q, k_s, v_q, v_s, length, *, dtype=torch.flo
     never -inf, so ``length = 0`` gives ``m = -1e30``, ``l = S`` and
     ``out = Σ v``).  Returns the unnormalized ``out`` (b, kvh, g, hd) f32,
     the row max ``m`` and the denominator ``l`` (b, kvh, g) f32.
-    ``dtype=torch.float64`` computes (and returns) all of it in f64, as
-    a yardstick of the f32 version's own rounding.
+    ``dtype=torch.float64`` computes (and returns) all of it in f64: a
+    reference free of the f32 version's own rounding.
     """
     b, S, kvh, hd = k_q.shape
     k = k_q.to(dtype) * k_s.to(dtype)[..., None]

@@ -259,7 +259,7 @@ def test_wrapper_takes_n_split_and_checks_it():
 @pytest.mark.parametrize("length", [0, 1, 200])
 def test_ref_in_f64_agrees_with_f32(length):
     """``dtype=torch.float64``: the same plain version in f64 (the
-    yardstick ``chip_smoke.py`` reads the f32 version's rounding against)."""
+    reference ``chip_smoke.py`` holds the kernel to at its timed shapes)."""
     _, tt = _both(_case(2, 256, 2, 4, 64, seed=9), length)
     got = fused_decode_attention_ref(*tt)
     want = fused_decode_attention_ref(*tt, dtype=torch.float64)
