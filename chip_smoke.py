@@ -14,9 +14,13 @@ Phases, in order; any failure propagates and the process exits non-zero:
 1. device: the card's name and power limit (``nvidia-smi``); TF32 off;
 2. build: ``nvcc`` builds the kernels from ``src/repro_torch/kernels/csrc``;
 3. kernel parity: the crossbar kernel against its plain version, flat and
-   query-blocked, f32 and bf16, dynamic switch on and off, q_block 1 and
-   8, at small shapes and at R=64, D=128, q=8 over a 100k-tile image,
-   with kernel and plain times (CUDA events, median) and memory bounds;
+   query-blocked, f32, bf16 and f16, dynamic switch on and off, q_block 1
+   and 8, at small shapes; q_block 3 and 32 and a 64 KB bitmap (q_block 16,
+   tile_rows 1024) at forced splits 1, 2 and 8 against the split version;
+   integer-valued images at the serving shape, bit-identical to the plain
+   and split versions, launch to launch and across the switch; at R=64,
+   D=128, q=8 over a 100k-tile image, with kernel and plain times (CUDA
+   events, median) and memory bounds;
 4. serving: ``ShardedEmbeddingServer(device="cuda")`` over 8 tables of
    932,019 rows (embed_dim 64 zero-padded to 128 columns, as the JAX
    DLRM kernel path pads), group_size 64, q_block 8, batch_size 256, one
@@ -72,8 +76,14 @@ SRC = ROOT / "src"
 
 H100_BYTES_PER_S = 3.35e12            # HBM3, H100 SXM data sheet
 PEAK_FLOPS = {"float32": 67e12,        # CUDA cores, no tensor cores
-              "bfloat16": 989e12}      # dense tensor-core rate
-TOL = {"float32": 1e-4, "bfloat16": 0.15}
+              "bfloat16": 989e12,      # dense tensor-core rate
+              "float16": 989e12}
+# max abs error of a crossbar output against its plain version: f32 sums
+# in another order; one rounding of a 16-bit output (an ulp is at most
+# 0.125 below 256 in size, in bf16 below 32)
+TOL = {"float32": 1e-4, "bfloat16": 0.15, "float16": 0.15}
+XB_SPLITS = (1, 2, 8)                  # forced crossbar splits held against the split version
+SERVED_TILES = 132_129                 # the serving image's tiles (8 tables, group_size 64)
 
 NUM_TABLES = 8                         # dlrm-recross FULL
 ROWS = 932_019
@@ -187,13 +197,28 @@ def bound(nbytes: int, flops: int, dtype: str) -> tuple[float, str]:
 
 
 def parity(torch, timer, name, image, tile_ids, bitmaps, *, dynamic_switch=True,
-           timed=True) -> dict:
-    """Kernel vs plain version on the card; raises past the tolerance."""
+           timed=True, n_split=None, exact=False) -> dict:
+    """Kernel vs plain version on the card; raises past the tolerance.
+
+    A forced ``n_split`` holds the kernel against the split version
+    (``crossbar_reduce_split_ref``), which adds the splits' partials in the
+    kernel's order.  ``exact`` (integer-valued images) asks for the same
+    bits as the plain version, as a second launch and as the other side of
+    the dynamic switch."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.crossbar_reduce import crossbar_reduce_cuda
 
-    plain = ref.crossbar_reduce_blocked_ref if bitmaps.ndim == 4 else ref.crossbar_reduce_ref
-    out = crossbar_reduce_cuda(image, tile_ids, bitmaps, dynamic_switch=dynamic_switch)
+    if n_split is None:
+        plain = ref.crossbar_reduce_blocked_ref if bitmaps.ndim == 4 else ref.crossbar_reduce_ref
+    else:
+        def plain(image, tile_ids, bitmaps):
+            return ref.crossbar_reduce_split_ref(image, tile_ids, bitmaps, n_split)
+
+    def kernel(switch=dynamic_switch):
+        return crossbar_reduce_cuda(image, tile_ids, bitmaps, dynamic_switch=switch,
+                                    n_split=n_split)
+
+    out = kernel()
     torch.cuda.synchronize()
     want = plain(image, tile_ids, bitmaps)
     dtype = str(image.dtype).removeprefix("torch.")
@@ -204,9 +229,14 @@ def parity(torch, timer, name, image, tile_ids, bitmaps, *, dynamic_switch=True,
             f"{tuple(out.shape)} vs {tuple(want.shape)}, max_abs_err {err} "
             f"> {TOL[dtype]}"
         )
+    if exact and not (torch.equal(out, want) and torch.equal(out, kernel())
+                      and torch.equal(out, kernel(not dynamic_switch))):
+        raise AssertionError(f"{name}: an integer-valued case is not bit-identical "
+                             f"(plain, second launch, switch flipped)")
     nbytes, flops, slot_bytes = work_of(torch, image, tile_ids, bitmaps)
     bound_ms, bound_by = bound(nbytes, flops, dtype)
     row = {"case": name, "dtype": dtype, "switch": dynamic_switch,
+           "n_split": n_split, "exact": exact,
            "shape": [list(image.shape), list(bitmaps.shape)],
            "max_abs_err": err, "tol": TOL[dtype], "bytes": nbytes,
            "slot_bytes": slot_bytes, "flops": flops,
@@ -220,10 +250,15 @@ def parity(torch, timer, name, image, tile_ids, bitmaps, *, dynamic_switch=True,
     return row
 
 
-def synthetic_case(torch, gen, T, R, D, nb, S, q_block, dtype, density=0.04):
+def synthetic_case(torch, gen, T, R, D, nb, S, q_block, dtype, density=0.04,
+                   integer=False):
     """Random image, schedules with padding slots, READ-path slots (one
-    active entry) and empty slots; ``q_block=None`` gives flat bitmaps."""
-    image = torch.randn((T, R, D), generator=gen, device=DEVICE).to(dtype)
+    active entry) and empty slots; ``q_block=None`` gives flat bitmaps.
+    ``integer`` draws the image from -8..8, so every f32 partial sum is exact."""
+    if integer:
+        image = torch.randint(-8, 9, (T, R, D), generator=gen, device=DEVICE).to(dtype)
+    else:
+        image = torch.randn((T, R, D), generator=gen, device=DEVICE).to(dtype)
     ids = torch.randint(0, T, (nb, S), generator=gen, device=DEVICE, dtype=torch.int32)
     ids[:, S - max(1, S // 8):] = -1
     lanes = (nb, S, R) if q_block is None else (nb, S, q_block, R)
@@ -238,12 +273,31 @@ def synthetic_case(torch, gen, T, R, D, nb, S, q_block, dtype, density=0.04):
 
 def phase_parity(torch, timer) -> None:
     gen = torch.Generator(device=DEVICE).manual_seed(0)
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
         for q in (None, 1, 8):
             for sw in (True, False):
                 name = f"small/{'flat' if q is None else f'q{q}'}"
                 case = synthetic_case(torch, gen, 512, 64, 256, 48, 24, q, dtype)
                 parity(torch, timer, name, *case, dynamic_switch=sw, timed=False)
+        # the reference's whole contract: q_block outside 1..16 and not a
+        # power of two, a 64 KB bitmap (q 16 x 1024 rows), at forced splits
+        for q, R in ((3, 64), (32, 64), (16, 1024)):
+            case = synthetic_case(torch, gen, 512, R, 128, 16, 48, q, dtype)
+            for n_split in XB_SPLITS:
+                for sw in (True, False):
+                    parity(torch, timer, f"contract/q{q}-r{R}", *case,
+                           dynamic_switch=sw, timed=False, n_split=n_split)
+    # an integer-valued image at the serving shape: the same bits as the
+    # plain version, launch to launch, switch on and off, at every split
+    for q in (8, 3, 32):
+        case = synthetic_case(torch, gen, SERVED_TILES, 64, 128, 16, 48, q, torch.float32,
+                              integer=True)
+        for n_split in (None, *XB_SPLITS):
+            for sw in (True, False):
+                parity(torch, timer, f"exact/q{q}", *case, dynamic_switch=sw,
+                       timed=False, n_split=n_split, exact=True)
+        del case
+    for dtype in (torch.float32, torch.bfloat16):
         # the main-path shape: R=64, D=128, q=8 over a 100k-tile image
         case = synthetic_case(torch, gen, 100_000, 64, 128, 64, 128, 8, dtype)
         for sw in (True, False):

@@ -79,16 +79,20 @@ def build(name: str) -> tuple[Path, float, str]:
 @functools.cache
 def load_crossbar() -> ctypes.CDLL:
     """The crossbar-reduce library, built on first call, with its C
-    signatures declared (every pointer and the stream as ``c_void_p``)."""
+    signatures declared (every pointer and the stream as ``c_void_p``),
+    and the kernel's occupancy, which the split rule reads."""
     path, _, _ = build("crossbar")
     lib = ctypes.CDLL(str(path))
     lib.crossbar_reduce_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,   # tiles, rows, dim, nb
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,   # S, q_block, q_chunk, n_split
+        ctypes.c_int, ctypes.c_int,                               # dtype, dynamic_switch
         ctypes.c_void_p,
     ]
     lib.crossbar_reduce_launch.restype = ctypes.c_int
+    lib.crossbar_blocks_per_sm.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.crossbar_blocks_per_sm.restype = ctypes.c_int
     lib.crossbar_error_string.argtypes = [ctypes.c_int]
     lib.crossbar_error_string.restype = ctypes.c_char_p
     return lib

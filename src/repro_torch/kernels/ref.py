@@ -22,12 +22,17 @@ def crossbar_reduce_blocked_ref(
     slots contribute 0).  Each slot's product is formed in float32, the
     slots are summed in float32 and the result is cast to the image dtype.
     """
+    return _crossbar_partial(image, tile_ids, bitmaps).to(image.dtype)
+
+
+def _crossbar_partial(image, tile_ids, bitmaps) -> torch.Tensor:
+    """The f32 ``(nb * q_block, dim)`` sum over the given slots."""
     nb, _, q_block, _ = bitmaps.shape
     num_tiles, _, dim = image.shape
     tiles = image[tile_ids.long().clamp(0, num_tiles - 1)].float()   # (nb,S,R,D)
     part = torch.einsum("nskr,nsrd->nskd", bitmaps.float(), tiles)
     part = part * (tile_ids >= 0)[..., None, None]
-    return part.sum(dim=1).reshape(nb * q_block, dim).to(image.dtype)
+    return part.sum(dim=1).reshape(nb * q_block, dim)
 
 
 def crossbar_reduce_ref(
@@ -40,6 +45,51 @@ def crossbar_reduce_ref(
     The flat layout is the blocked one at ``q_block=1``.
     """
     return crossbar_reduce_blocked_ref(image, tile_ids, bitmaps[:, :, None, :])
+
+
+def crossbar_row_widths(tile_ids: torch.Tensor) -> torch.Tensor:
+    """Each schedule row's width: one past its last non-padding slot (0
+    for a row of padding).  Every slot at or past it is padding."""
+    nb, S = tile_ids.shape
+    if S == 0:
+        return torch.zeros(nb, dtype=torch.int64, device=tile_ids.device)
+    pos = torch.arange(1, S + 1, device=tile_ids.device)
+    return (pos * (tile_ids >= 0)).amax(dim=1)
+
+
+def crossbar_slot_ranges(width: int, n_split: int) -> list[tuple[int, int]]:
+    """The crossbar kernel's split rule: split ``i`` of a query block whose
+    row is ``width`` slots wide (:func:`crossbar_row_widths`) takes the
+    contiguous slots ``[i*width // n_split, (i+1)*width // n_split)``.
+    Every slot falls in exactly one range, in order; no range is empty
+    while ``n_split <= width``."""
+    return [(i * width // n_split, (i + 1) * width // n_split) for i in range(n_split)]
+
+
+def crossbar_reduce_split_ref(
+    image: torch.Tensor,     # (num_tiles, tile_rows, dim)
+    tile_ids: torch.Tensor,  # (nb, max_tiles) int32, -1 padding
+    bitmaps: torch.Tensor,   # (nb, max_tiles, q_block, tile_rows) or flat 3-D
+    n_split: int,
+) -> torch.Tensor:
+    """:func:`crossbar_reduce_blocked_ref` (or, for 3-D bitmaps,
+    :func:`crossbar_reduce_ref`) as the CUDA kernel divides it: in each
+    row, each range of :func:`crossbar_slot_ranges` over the row's width
+    gives an f32 partial, and the partials are added in rank order (split
+    0 first) before the cast to the image dtype.  An empty range adds
+    nothing."""
+    bm = bitmaps[:, :, None, :] if bitmaps.ndim == 3 else bitmaps
+    nb, S, q_block, _ = bm.shape
+    width = crossbar_row_widths(tile_ids)[:, None]
+    slot = torch.arange(S, device=tile_ids.device)[None, :]
+    out = torch.zeros((nb * q_block, image.shape[2]), dtype=torch.float32,
+                      device=image.device)
+    for i in range(n_split):
+        lo, hi = i * width // n_split, (i + 1) * width // n_split
+        ids = torch.where((slot >= lo) & (slot < hi), tile_ids, -1)
+        if bool((ids >= 0).any()):
+            out = out + _crossbar_partial(image, ids, bm)
+    return out.to(image.dtype)
 
 
 def embedding_bag_ref(
