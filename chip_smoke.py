@@ -30,9 +30,16 @@ Phases, in order; any failure propagates and the process exits non-zero:
 5. flat op: ``ops.crossbar_reduce`` on one table's compiled queries
    against ``reduce_dense_oracle`` on the card;
 6. embedding-bag parity: the embedding-bag kernel against its plain
-   version at small shapes (f32, bf16, -1 padding) and at the main-path
-   shape (932,019 x 128 f32 table, 256 bags x 64), forward and gradient,
-   timed beside its plain version and ``F.embedding_bag``;
+   version at small shapes (f32, bf16, f16, -1 padding) at the host
+   rule's split and forced splits 1, 2 and 8 (against the split version),
+   and at the main-path shape (932,019 x 128 table, 256 bags x 64): f32
+   and bf16, forced splits, padding inside bags and out-of-range ids in
+   every dtype, integer-valued tables bit-identical to the plain and
+   split versions and a second launch at every split, int64 indices
+   refused; forward and gradient; timed beside its bound, its plain
+   version and ``F.embedding_bag`` at the main path (f32, bf16), an
+   all-padding launch of the same grid, 4,096 bags, and a 65,024 x 4,096
+   bf16 token-embedding gather of 2,048 single-id bags;
 7. DLRM: ``dlrm-recross`` FULL (8 tables x 932,019 rows, embed_dim 64,
    bottom 512-256-64, top 1024-512-1) on the serving phase's layouts and
    tables, batch 256; at step 0 the naive datapath (``ops.embedding_bag``
@@ -83,6 +90,9 @@ PEAK_FLOPS = {"float32": 67e12,        # CUDA cores, no tensor cores
 # 0.125 below 256 in size, in bf16 below 32)
 TOL = {"float32": 1e-4, "bfloat16": 0.15, "float16": 0.15}
 XB_SPLITS = (1, 2, 8)                  # forced crossbar splits held against the split version
+EB_SPLITS = (1, 2, 8)                  # forced embedding-bag splits held against the split version
+EB_LARGE = 4_096                       # bags of the batched embedding-bag shape
+ONEHOT = (65_024, 4_096, 2_048)        # chatglm3-6b vocabulary and width, bags of one id
 SERVED_TILES = 132_129                 # the serving image's tiles (8 tables, group_size 64)
 
 NUM_TABLES = 8                         # dlrm-recross FULL
@@ -467,16 +477,30 @@ def eb_work(torch, table, idx):
     return nbytes, int(valid.numel()) * dim
 
 
-def eb_parity(torch, timer, name, table, idx, *, timed=False) -> dict:
+def eb_parity(torch, timer, name, table, idx, *, timed=False, n_split=None,
+              exact=False) -> dict:
     """Embedding-bag kernel vs its plain version on the card; raises past
-    the tolerance.  Timed cases add ``F.embedding_bag`` as the library
-    call (a yardstick the port never calls)."""
+    the tolerance.  A forced ``n_split`` holds the kernel against the split
+    version (``embedding_bag_split_ref``), which adds the splits' partials
+    in the kernel's order.  ``exact`` (integer-valued tables) asks for the
+    same bits as the plain version, the split version at the launch's
+    split and a second launch.  Timed cases add ``F.embedding_bag`` as the
+    library call (a yardstick the port never calls)."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.embedding_bag import embedding_bag_cuda
+    from repro_torch.kernels.embedding_bag import (
+        embedding_bag_cuda, embedding_bag_device_plan,
+    )
 
-    out = embedding_bag_cuda(table, idx)
+    def kernel():
+        return embedding_bag_cuda(table, idx, n_split=n_split)
+
+    plan = embedding_bag_device_plan(table, idx, n_split)
+    out = kernel()
     torch.cuda.synchronize()
-    want = ref.embedding_bag_ref(table, idx)
+    if n_split is None:
+        want = ref.embedding_bag_ref(table, idx)
+    else:
+        want = ref.embedding_bag_split_ref(table, idx, n_split)
     dtype = str(table.dtype).removeprefix("torch.")
     err = float((out.float() - want.float()).abs().max().item()) if out.numel() else 0.0
     if not (out.shape == want.shape and out.dtype == table.dtype and err <= TOL[dtype]):
@@ -485,9 +509,16 @@ def eb_parity(torch, timer, name, table, idx, *, timed=False) -> dict:
             f"shape {tuple(out.shape)} vs {tuple(want.shape)}, max_abs_err {err} "
             f"> {TOL[dtype]}"
         )
+    if exact and not (torch.equal(out, ref.embedding_bag_ref(table, idx))
+                      and torch.equal(out, ref.embedding_bag_split_ref(table, idx, plan.n_split))
+                      and torch.equal(out, kernel())):
+        raise AssertionError(f"{name}: an integer-valued case is not bit-identical "
+                             f"(plain, split version, second launch)")
     nbytes, flops = eb_work(torch, table, idx)
     bound_ms, bound_by = bound(nbytes, flops, dtype)
     row = {"case": name, "dtype": dtype, "shape": [list(table.shape), list(idx.shape)],
+           "n_split": plan.n_split, "forced": n_split is not None, "exact": exact,
+           "grid": list(plan.grid), "block": plan.block,
            "max_abs_err": err, "tol": TOL[dtype], "bytes": nbytes, "flops": flops,
            "bound_ms": bound_ms, "bound_by": bound_by}
     if timed:
@@ -499,11 +530,12 @@ def eb_parity(torch, timer, name, table, idx, *, timed=False) -> dict:
                 lib_idx, table, mode="sum", per_sample_weights=weights)
 
         lib_err = float((library().float() - want.float()).abs().max().item())
-        row["ms"] = timer.ms(lambda: embedding_bag_cuda(table, idx))
+        row["ms"] = timer.ms(kernel)
         row["plain_ms"] = timer.ms(lambda: ref.embedding_bag_ref(table, idx), reps=10)
         row["library_ms"] = timer.ms(library)
         row["library_max_abs_err"] = lib_err
         row["GB_per_s"] = nbytes / row["ms"] / 1e6
+        row["share_of_bound"] = bound_ms / row["ms"]
     log("eb-parity", json.dumps(row))
     return row
 
@@ -521,22 +553,56 @@ def random_bags(torch, gen, rows, batch, bag, mean_len):
 
 def phase_embedding_bag(torch, timer) -> dict:
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.embedding_bag import embedding_bag_cuda
 
     gen = torch.Generator(device=DEVICE).manual_seed(1)
-    # tests/test_kernels.py's shapes (rows, D, B, K), last column padding
+    dtypes = (torch.float32, torch.bfloat16, torch.float16)
+    # tests/test_kernels.py's shapes (rows, D, B, K), last column padding,
+    # at the rule's split and forced splits against the split version
     for rows, dim, batch, bag in [(64, 128, 4, 8), (100, 128, 2, 5),
                                   (257, 256, 8, 16), (16, 512, 1, 3)]:
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in dtypes:
             table = torch.randn((rows, dim), generator=gen, device=DEVICE).to(dtype)
             idx = torch.randint(0, rows, (batch, bag), generator=gen, device=DEVICE,
                                 dtype=torch.int32)
             idx[:, -1] = -1
-            eb_parity(torch, timer, "small", table, idx)
+            for n_split in (None, *EB_SPLITS):
+                eb_parity(torch, timer, "small", table, idx, n_split=n_split)
     # the main-path shape: one dlrm-recross table at the kernel's 128 columns
     table = torch.randn((ROWS, PADDED_DIM), generator=gen, device=DEVICE)
     idx = random_bags(torch, gen, ROWS, BATCH_SIZE, MAX_BAG, 32.0)
     row = eb_parity(torch, timer, "main-path", table, idx, timed=True)
-    eb_parity(torch, timer, "main-path/bf16", table.bfloat16(), idx)
+    timed = [row, eb_parity(torch, timer, "main-path/bf16", table.bfloat16(), idx,
+                            timed=True)]
+    for n_split in EB_SPLITS:
+        eb_parity(torch, timer, "main-path/split", table, idx, n_split=n_split)
+    # padding inside bags, an out-of-range id clamped to the last row
+    holes = torch.where(torch.rand(idx.shape, generator=gen, device=DEVICE) < 0.25,
+                        torch.full_like(idx, -1), idx)
+    holes[:, 0] = ROWS + 7
+    for dtype in dtypes:
+        eb_parity(torch, timer, "main-path/holes", table.to(dtype), holes)
+    # integer-valued tables (|sums| <= 192, exact in every dtype): the same
+    # bits as the plain and split versions and a second launch, at every split
+    ints = torch.randint(-3, 4, (ROWS, PADDED_DIM), generator=gen, device=DEVICE)
+    for dtype in dtypes:
+        for n_split in (None, *EB_SPLITS):
+            eb_parity(torch, timer, "exact/main-path", ints.to(dtype), idx,
+                      n_split=n_split, exact=True)
+    del ints
+    try:
+        embedding_bag_cuda(table, idx.long())
+    except TypeError:
+        pass
+    else:
+        raise AssertionError("embedding_bag_cuda took int64 indices on the card")
+    # the launch's fixed cost: the same grid with every id padding
+    timed.append(eb_parity(torch, timer, "main-path/all-padding", table,
+                           torch.full_like(idx, -1), timed=True))
+    # a batched serving shape, where bandwidth and not latency is the limit
+    big = random_bags(torch, gen, ROWS, EB_LARGE, MAX_BAG, 32.0)
+    timed.append(eb_parity(torch, timer, "large", table, big, timed=True))
+    del big
     # gradient: the op's index_add_ backward vs autograd through the plain
     # version (both f32 atomics, in different orders)
     g = torch.randn((BATCH_SIZE, PADDED_DIM), generator=gen, device=DEVICE)
@@ -550,6 +616,19 @@ def phase_embedding_bag(torch, timer) -> dict:
     row["grad_max_abs_err"] = grad_err
     del table, leaf, d_op, d_ref, g
     torch.cuda.empty_cache()
+    # token-embedding gather: chatglm3-6b's vocabulary and width in bf16,
+    # bags of one id (the reference's second role for this kernel)
+    vocab, width, tokens = ONEHOT
+    table = torch.randn((vocab, width), generator=gen, device=DEVICE).bfloat16()
+    idx = torch.randint(0, vocab, (tokens, 1), generator=gen, device=DEVICE,
+                        dtype=torch.int32)
+    timed.append(eb_parity(torch, timer, "onehot-wide", table, idx, timed=True))
+    del table, idx
+    torch.cuda.empty_cache()
+    for r in timed:
+        log(f"eb-timed: {r['case']} {r['dtype']} kernel {r['ms']:.5f} ms, bound "
+            f"{r['bound_ms']:.5f} ({r['share_of_bound']:.1%}), plain {r['plain_ms']:.5f}, "
+            f"F.embedding_bag {r['library_ms']:.5f}, n_split {r['n_split']}")
     return row
 
 

@@ -101,15 +101,19 @@ def load_crossbar() -> ctypes.CDLL:
 @functools.cache
 def load_embedding_bag() -> ctypes.CDLL:
     """The embedding-bag library, built on first call, with its C
-    signatures declared (every pointer and the stream as ``c_void_p``)."""
+    signatures declared (every pointer and the stream as ``c_void_p``),
+    and the kernel's occupancy, which the split rule reads."""
     path, _, _ = build("embedding_bag")
     lib = ctypes.CDLL(str(path))
     lib.embedding_bag_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # rows, dim, batch, bag, dtype
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,   # n_split, bags_per_block, threads
         ctypes.c_void_p,
     ]
     lib.embedding_bag_launch.restype = ctypes.c_int
+    lib.embedding_bag_blocks_per_sm.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.embedding_bag_blocks_per_sm.restype = ctypes.c_int
     lib.embedding_bag_error_string.argtypes = [ctypes.c_int]
     lib.embedding_bag_error_string.restype = ctypes.c_char_p
     return lib

@@ -102,9 +102,38 @@ def embedding_bag_ref(
     reads the last row (clamped, as the JAX oracle clamps).  Rows are
     summed in float32 and the result is cast to the table dtype.
     """
+    return _embedding_bag_partial(table, indices).to(table.dtype)
+
+
+def _embedding_bag_partial(table, indices) -> torch.Tensor:
+    """The f32 ``(batch, dim)`` sum over the given positions."""
     rows = table.shape[0]
     take = table[indices.long().clamp(0, rows - 1)].float()       # (B, K, D)
-    return (take * (indices >= 0)[..., None]).sum(dim=1).to(table.dtype)
+    return (take * (indices >= 0)[..., None]).sum(dim=1)
+
+
+def embedding_bag_k_ranges(K: int, n_split: int) -> list[tuple[int, int]]:
+    """The embedding-bag kernel's split rule: split ``i`` of a bag of
+    ``K`` positions takes the contiguous positions ``[i*K // n_split,
+    (i+1)*K // n_split)``, padding or not.  Every position falls in exactly
+    one range, in order; no range is empty while ``n_split <= K``."""
+    return [(i * K // n_split, (i + 1) * K // n_split) for i in range(n_split)]
+
+
+def embedding_bag_split_ref(
+    table: torch.Tensor,    # (rows, dim)
+    indices: torch.Tensor,  # (batch, bag) int, -1 padding
+    n_split: int,
+) -> torch.Tensor:
+    """:func:`embedding_bag_ref` as the CUDA kernel divides it: each range
+    of :func:`embedding_bag_k_ranges` gives an f32 partial, and the
+    partials are added in split order (split 0 first) before the cast to
+    the table dtype."""
+    out = torch.zeros((indices.shape[0], table.shape[1]), dtype=torch.float32,
+                      device=table.device)
+    for lo, hi in embedding_bag_k_ranges(indices.shape[1], n_split):
+        out = out + _embedding_bag_partial(table, indices[:, lo:hi])
+    return out.to(table.dtype)
 
 
 def fused_decode_attention_ref(q, k_q, k_s, v_q, v_s, length, *, dtype=torch.float32):
