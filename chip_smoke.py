@@ -27,6 +27,16 @@ Phases, in order; any failure propagates and the process exits non-zero:
    shard; histories from ``scale_trace``; ~4,096 queries through
    ``submit``/``flush``; sampled rows checked against a plain gather+sum
    on the card; the kernel's launches counted over this run;
+   serving-async: the same tables and queries through a second server
+   with 4 shards emulated on the card, ``flush_policy="owner-set"``
+   (``owner_set_max=2``), the thread driver and two producer threads
+   (even and odd positions); every drained row held against the serving
+   phase's within ``TOL`` in the ``(local_seq, producer)`` merge order,
+   sampled rows against gather+sum, one flush dispatched behind
+   ``torch.cuda._sleep`` returning with its event pending; then
+   integer-valued tables served under global, per-shard, deadline,
+   owner-set and owner-set threaded with two producers, every drain
+   bit-identical to gather+sum;
 5. flat op: ``ops.crossbar_reduce`` on one table's compiled queries
    against ``reduce_dense_oracle`` on the card;
 6. embedding-bag parity: the embedding-bag kernel against its plain
@@ -105,6 +115,10 @@ BATCH_SIZE = 256
 HISTORY = 100_000
 STREAM_PER_TABLE = 512                 # 8 x 512 = 4,096 served queries
 SAMPLE_ROWS = 256
+ASYNC_SHARDS = 4                       # serving-async: shards emulated on the one card
+BITS_ROWS = 4_096                      # serving-async: integer-valued tables
+BITS_QUERIES = 1_024
+BUSY_CYCLES = 200_000_000              # torch.cuda._sleep before one dispatch, ~0.1 s
 PLAN_BUDGET_S = 180.0
 MAX_BAG = 64                           # dlrm-recross FULL
 TRAIN_STEPS = 20
@@ -434,7 +448,258 @@ def phase_serving(torch, np, timer):
     half = -(-sbq.num_blocks // 2)
     real = parity(torch, timer, "serving-flush/q8", server.shard_images[0],
                   sbq.tile_ids[0, :half].contiguous(), sbq.bitmaps[0, :half].contiguous())
-    return stats, real, server, tables, streams, histories
+    return stats, real, server, tables, streams, histories, {"order": order, "out": out}
+
+
+def _submit_from_producers(server, slices) -> None:
+    """Submits each producer's ``[(table, query), ...]`` from its own
+    thread, all released together; re-raises the first failure."""
+    import threading
+
+    gate = threading.Barrier(len(slices) + 1, timeout=600)
+    errors = []
+
+    def run(label):
+        try:
+            gate.wait()
+            for name, q in slices[label]:
+                server.submit(name, q, producer=label)
+        except Exception as e:  # re-raised on the caller's thread below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(label,), name=label, daemon=True)
+               for label in slices]
+    for t in threads:
+        t.start()
+    gate.wait()
+    for t in threads:
+        t.join(timeout=600)
+        if t.is_alive():
+            raise AssertionError(f"producer {t.name} did not finish")
+    if errors:
+        raise errors[0]
+
+
+def phase_serving_async(torch, np, tables, histories, streams, served) -> dict:
+    """The async engine at dlrm-recross FULL width: 4 shards emulated on
+    the card, owner-set homes of at most 2 owners, the thread driver, two
+    producers submitting the even and odd positions of the serving
+    phase's stream; rows held against the serving phase's (the shard
+    combine reorders sums) and sampled against gather+sum."""
+    from repro_torch.core import reduce_dense_oracle
+    from repro_torch.kernels.crossbar_reduce import crossbar_reduce_cuda
+    from repro_torch.serve import ShardedEmbeddingServer
+
+    names = sorted(tables)
+    order, rows_global = served["order"], served["out"]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    server = ShardedEmbeddingServer(
+        tables, histories, num_shards=ASYNC_SHARDS, q_block=Q_BLOCK,
+        group_size=GROUP_SIZE, batch_size=BATCH_SIZE, flush_policy="owner-set",
+        owner_set_max=2, threaded=True, max_in_flight=2, device=DEVICE,
+    )
+    plan_s = time.perf_counter() - t0
+    image = server.shard_images
+    image_bytes = image.numel() * image.element_size()
+    log(f"serving-async: plan build {plan_s:.2f} s for {len(names)} tables x {ROWS} rows, "
+        f"{ASYNC_SHARDS} shards, image {tuple(image.shape)} = {image_bytes} B on the card")
+
+    # whether each flush's kernels were still running when its dispatch
+    # returned (busy_stream_dispatch below holds the no-wait property
+    # itself; here the count also depends on the threads' timing)
+    dispatched = {"flushes": 0, "pending": 0}
+    dispatch = server._compile_and_dispatch
+
+    def counted(entries, participants):
+        entry = dispatch(entries, participants)
+        dispatched["flushes"] += 1
+        dispatched["pending"] += int(entry.event is not None and not entry.event.query())
+        return entry
+
+    server._compile_and_dispatch = counted
+    # where the stream routes (a peek: route() consumes no state)
+    routed = {"single": 0, "owner_set": 0, "pool": 0}
+    for name, q in order:
+        home = server.scheduler.route(name, q)[0]
+        routed["pool" if home == -1 else "owner_set" if isinstance(home, tuple)
+               else "single"] += 1
+    labels = ("p0", "p1")
+    for label in labels:
+        server.register_producer(label)
+    slices = {label: [order[i] for i in range(p, len(order), 2)]
+              for p, label in enumerate(labels)}
+    crossbar_reduce_cuda.launches = 0
+    t0 = time.perf_counter()
+    try:
+        _submit_from_producers(server, slices)
+        out = server.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = crossbar_reduce_cuda.launches
+        # read before busy_stream_dispatch adds a compile outside the wall
+        rep = server.report()
+        busy = busy_stream_dispatch(torch, server, dispatch, order, rows_global)
+    finally:
+        server.close()
+        # the counting wrapper closes a cycle through the server; break it
+        # so the server's 4.6 GB image is freed when this phase returns
+        del server._compile_and_dispatch
+    if launches <= 0:
+        raise AssertionError("serving-async ran no crossbar kernel launch")
+
+    # the merge order (local_seq, pid) implies, as positions in each
+    # table's serving-phase rows
+    local = {}
+    keyed = {n: [] for n in names}
+    seen = {n: 0 for n in names}
+    for i, (name, _) in enumerate(order):
+        pid = i % 2
+        seq = local.get((pid, name), 0)
+        local[(pid, name)] = seq + 1
+        keyed[name].append((seq, pid, seen[name]))
+        seen[name] += 1
+    merged = {n: [k for _, _, k in sorted(keyed[n])] for n in names}
+    err = 0.0
+    for n in names:
+        got = out.get(n)
+        if got is None or got.shape != (len(merged[n]), PADDED_DIM) or not torch.isfinite(got).all():
+            raise AssertionError(f"serving-async table {n}: bad output "
+                                 f"{None if got is None else tuple(got.shape)}")
+        want = rows_global[n][torch.tensor(merged[n], device=DEVICE)]
+        err = max(err, float((got - want).abs().max().item()))
+    if err > TOL["float32"]:
+        raise AssertionError(f"serving-async rows disagree with the global phase's: {err}")
+    pick = np.random.default_rng(11).choice(len(order), size=SAMPLE_ROWS, replace=False)
+    flat = [(n, j) for n in names for j in range(len(merged[n]))]
+    oracle_err = 0.0
+    for i in pick.tolist():
+        n, j = flat[i]
+        # the k-th query of a table in the serving phase is streams[n][k]
+        want = reduce_dense_oracle(tables[n], [streams[n][merged[n][j]]])[0]
+        oracle_err = max(oracle_err, float((out[n][j] - want).abs().max().item()))
+    if oracle_err > TOL["float32"]:
+        raise AssertionError(f"serving-async rows disagree with gather+sum: {oracle_err}")
+
+    s = rep["serve"]
+    pct = {k: {p: s[k][p] for p in ("p50", "p99")}
+           for k in ("submit_latency_s", "e2e_latency_s", "flush_latency_s")}
+    stats = {
+        "tables": len(names), "rows": ROWS, "dim": PADDED_DIM, "shards": ASYNC_SHARDS,
+        "policy": "owner-set", "owner_set_max": 2, "threaded": True, "producers": 2,
+        "plan_build_s": plan_s, "image_shape": list(image.shape), "image_bytes": image_bytes,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "queries": s["queries"], "wall_s": wall, "queries_per_s": s["queries"] / wall,
+        **pct,
+        "host_compile_s": s["host_compile_s"], "hidden_compile_s": s["hidden_compile_s"],
+        "overlap_fraction": s["overlap_fraction"], "in_flight_peak": s["in_flight_peak"],
+        "batches": s["batches"], "shard_flushes": s["shard_flushes"],
+        "participant_sizes": s["participant_sizes"],
+        "deadline_flushes": s["deadline_flushes"], "barrier_flushes": s["barrier_flushes"],
+        "kernel_launches": launches, "routed_queries": routed,
+        "dispatches": dispatched["flushes"], "pending_at_dispatch_return": dispatched["pending"],
+        "busy_stream_dispatch": busy,
+        "max_abs_err_vs_global": err, "sampled_rows": SAMPLE_ROWS,
+        "sample_max_abs_err": oracle_err, "faults": s["faults"],
+    }
+    log("serving-async", json.dumps(stats))
+    return stats
+
+
+def busy_stream_dispatch(torch, server, dispatch, order, rows_global) -> dict:
+    """One flush dispatched while the server's stream is still busy with
+    ``BUSY_CYCLES`` of ``torch.cuda._sleep``: the dispatch (host compile,
+    the pinned copy of the schedule, the kernels) must return while the
+    stream still runs, its event pending; its rows must equal the global
+    phase's.  A host wait anywhere in the dispatch fails this."""
+    batch = order[:BATCH_SIZE]
+    entries = [(name, i, list(q)) for i, (name, q) in enumerate(batch)]
+    with torch.cuda.stream(server._stream):
+        torch.cuda._sleep(BUSY_CYCLES)
+        t0 = time.perf_counter()
+        entry = dispatch(entries, None)
+        returned_ms = (time.perf_counter() - t0) * 1e3
+        pending = not entry.event.query()
+        entry.event.synchronize()
+        done_ms = (time.perf_counter() - t0) * 1e3
+    if not pending:
+        raise AssertionError(f"a dispatch onto a busy stream waited for it "
+                             f"(returned after {returned_ms:.1f} ms)")
+    err = 0.0
+    for name, out in zip(entry.served, entry.outs):
+        # the batch holds each table's first queries of the serving phase
+        err = max(err, float((out - rows_global[name][: out.shape[0]]).abs().max().item()))
+    if err > TOL["float32"]:
+        raise AssertionError(f"busy-stream dispatch rows disagree: {err}")
+    return {"busy_cycles": BUSY_CYCLES, "returned_ms": returned_ms,
+            "event_pending_at_return": pending, "done_ms": done_ms, "max_abs_err": err}
+
+
+def phase_async_bits(torch, np) -> dict:
+    """Integer-valued tables on the card: one seeded stream served under
+    global, per-shard, deadline and owner-set inline, and owner-set on the
+    thread driver from two producers; every drain must hold the same bits
+    as the others and as gather+sum."""
+    from repro_torch.convert import tables_from_numpy
+    from repro_torch.core import reduce_dense_oracle
+    from repro_torch.data import zipf_queries
+    from repro_torch.kernels.crossbar_reduce import crossbar_reduce_cuda
+    from repro_torch.serve import ShardedEmbeddingServer
+
+    rng = np.random.default_rng(99)
+    names = ("a", "b")
+    tables = tables_from_numpy({
+        n: rng.integers(-8, 9, size=(BITS_ROWS, PADDED_DIM)).astype(np.float32)
+        for n in names}, DEVICE)
+    histories = {n: zipf_queries(BITS_ROWS, 2048, 12.0, seed=10 + i) for i, n in enumerate(names)}
+    stream = [("a" if i % 3 else "b", q)
+              for i, q in enumerate(zipf_queries(BITS_ROWS, BITS_QUERIES, 12.0, seed=20))]
+    per_table = {n: [q for t, q in stream if t == n] for n in names}
+    oracle = {n: reduce_dense_oracle(tables[n], per_table[n]) for n in names}
+    # the k-th query of a table goes to producer k % 2: the (local_seq,
+    # pid) merge then restores each table's submission order
+    slices, count = {"p0": [], "p1": []}, {n: 0 for n in names}
+    for t, q in stream:
+        slices[f"p{count[t] % 2}"].append((t, q))
+        count[t] += 1
+    runs = {}
+    launches = 0
+    for label, policy, threaded in (("global", "global", False),
+                                    ("per-shard", "per-shard", False),
+                                    ("deadline", "deadline", False),
+                                    ("owner-set", "owner-set", False),
+                                    ("owner-set/threaded/2p", "owner-set", True)):
+        server = ShardedEmbeddingServer(
+            tables, histories, num_shards=ASYNC_SHARDS, q_block=4, group_size=GROUP_SIZE,
+            batch_size=32, flush_policy=policy, threaded=threaded, device=DEVICE)
+        crossbar_reduce_cuda.launches = 0
+        try:
+            if threaded:
+                for p in slices:
+                    server.register_producer(p)
+                _submit_from_producers(server, slices)
+                out = server.drain()
+            else:
+                parts = {n: [] for n in names}
+                for t, q in stream:
+                    for n, rows in server.submit(t, q).items():
+                        parts[n].append(rows)
+                for n, rows in server.flush().items():
+                    parts[n].append(rows)
+                out = {n: torch.cat(parts[n]) for n in names}
+        finally:
+            server.close()
+        launches += crossbar_reduce_cuda.launches
+        for n in names:
+            if not torch.equal(out[n], oracle[n]):
+                bad = float((out[n] - oracle[n]).abs().max().item())
+                raise AssertionError(f"async bits: {label} table {n} is not bit-identical "
+                                     f"to gather+sum (max_abs_err {bad})")
+        runs[label] = server.stats.summary()["batches"]
+    stats = {"rows": BITS_ROWS, "queries": len(stream), "shards": ASYNC_SHARDS,
+             "flushes": runs, "kernel_launches": launches, "bit_identical": True}
+    log("serving-async-bits", json.dumps(stats))
+    return stats
 
 
 def phase_flat(torch, timer, server, tables, streams) -> dict:
@@ -1146,7 +1411,13 @@ def main() -> int:
 
     timer = Timer(torch)
     phase_parity(torch, timer)
-    serving, serving_row, server, tables, streams, histories = phase_serving(torch, np, timer)
+    serving, serving_row, server, tables, streams, histories, served = phase_serving(
+        torch, np, timer)
+    serving_async = phase_serving_async(torch, np, tables, histories, streams, served)
+    del served
+    torch.cuda.empty_cache()
+    phase_async_bits(torch, np)
+    torch.cuda.empty_cache()
     flat = phase_flat(torch, timer, server, tables, streams)
     eb_row = phase_embedding_bag(torch, timer)
     dlrm = phase_dlrm(torch, np, timer, server, tables, histories)
@@ -1160,9 +1431,11 @@ def main() -> int:
 
     crossbar_src = "src/repro_torch/kernels/csrc/crossbar_reduce.cu"
     kernels = [
+        # launches over the serving and serving-async phases
         kernel_entry("crossbar_reduce_blocked", crossbar_src,
                      "src/repro/kernels/crossbar_reduce.py:103",
-                     serving["kernel_launches"], serving_row),
+                     serving["kernel_launches"] + serving_async["kernel_launches"],
+                     serving_row),
         # launches over the flat-op and DLRM phases
         kernel_entry("crossbar_reduce_flat", crossbar_src,
                      "src/repro/kernels/crossbar_reduce.py:54",

@@ -18,6 +18,7 @@ from repro_torch.core.mapping import (
     query_tile_bitmaps,
 )
 from repro_torch.core.reduction import (
+    BlockUnionTracker,
     BlockedQueries,
     CompiledQueries,
     ShardedBlockedQueries,
@@ -47,7 +48,7 @@ __all__ = [
     "correlation_aware_grouping", "frequency_grouping", "naive_grouping",
     "ReplicationPlan", "plan_replication",
     "CrossbarLayout", "build_layout", "compile_activations",
-    "query_tile_bitmaps", "BlockedQueries", "CompiledQueries",
+    "query_tile_bitmaps", "BlockUnionTracker", "BlockedQueries", "CompiledQueries",
     "ShardedBlockedQueries", "block_compiled_queries", "compile_queries",
     "concat_compiled_queries", "offset_compiled_queries",
     "reduce_dense_oracle", "reduce_via_layout", "shard_block_queries",

@@ -78,7 +78,19 @@ def _host(t: torch.Tensor) -> np.ndarray:
 
 
 def _to_device(a: np.ndarray, device, dtype: torch.dtype | None = None) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dtype)
+    """Host array → tensor on ``device``.  A CUDA target is staged
+    through pinned memory and copied with ``non_blocking=True``: a copy
+    from pageable memory would make the host wait for every kernel
+    already queued on the stream, so compiling flush *n+1* would wait
+    for flush *n*.  The caching host allocator keeps the pinned block
+    until the copy's stream event completes, and stream order keeps
+    every consumer behind the copy.  A dtype change runs on the device
+    after the copy (``copy_`` would convert on the host, into pageable
+    memory)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device=device, non_blocking=True).to(dtype=dtype)
+    return t.to(device=device, dtype=dtype)
 
 
 def compile_queries(
@@ -361,6 +373,68 @@ def shard_block_queries(
         shard_widths=widths.astype(np.int64),
         shards=shards_field,
     )
+
+
+class BlockUnionTracker:
+    """Incremental block-union fill accounting for one pending stream.
+
+    The port of ``repro.core.reduction.BlockUnionTracker`` (host
+    bookkeeping).  The flush scheduler (DESIGN.md §7) needs to know, as
+    queries accumulate on a flush home — one shard, or a frozen owner set
+    of shards — how large that home's kernel grid would be if it flushed
+    *now* — without compiling anything.  With ``replica_block=q_block``
+    every block resolves each activated group to exactly one replica
+    tile, so a block's union width equals the number of distinct groups
+    its members touch; this tracker maintains exactly that, one ``set``
+    union per in-progress block:
+
+      * :attr:`fill` — Σ union widths over all pending blocks (the raw
+        tile-DMA count of a flush-now);
+      * :meth:`grid_cells` — ``nb × padded max width``, the same
+        padded accounting as :func:`shard_block_queries`.
+
+    ``add`` takes the query's distinct activated *group* ids (host-side
+    routing already computes them); O(groups-per-query) per call.
+    """
+
+    def __init__(self, q_block: int):
+        if q_block < 1:
+            raise ValueError("q_block must be >= 1")
+        self.q_block = q_block
+        self.reset()
+
+    def reset(self) -> None:
+        self._n = 0
+        self._filled = 0          # Σ union widths of completed blocks
+        self._max_width = 0
+        self._block: set = set()  # current partial block's union
+
+    def add(self, groups) -> None:
+        """Appends one query (its distinct activated group ids)."""
+        if self._n and self._n % self.q_block == 0:
+            self._filled += len(self._block)
+            self._max_width = max(self._max_width, len(self._block))
+            self._block = set()
+        self._block.update(int(g) for g in groups)
+        self._n += 1
+
+    @property
+    def pending(self) -> int:
+        """Queries added since the last reset."""
+        return self._n
+
+    @property
+    def fill(self) -> int:
+        """Σ block-union widths of the pending stream (tile DMA count)."""
+        return self._filled + len(self._block)
+
+    def grid_cells(self) -> int:
+        """Kernel grid cells of a flush-now (nb × padded width)."""
+        if self._n == 0:
+            return 0
+        nb = -(-self._n // self.q_block)
+        width = max(self._max_width, len(self._block))
+        return nb * _padded_width(width, None, "pending block")
 
 
 def offset_compiled_queries(cq: CompiledQueries, tile_offset: int) -> CompiledQueries:

@@ -5,7 +5,10 @@ shared library with a plain C interface and loaded with ``ctypes``
 (no PyTorch headers, so a build takes seconds).  The build happens at
 first use, into ``build/repro_torch/`` under the repository root, and is
 reused while the library is newer than its source.  There is no fallback:
-a missing ``nvcc`` or a failed build raises.
+a missing ``nvcc``, a failed build or a failed launch raises
+:class:`KernelError`.  The loaders are cached under a lock
+(:func:`locked_cache`), so two threads that make a first launch together
+(a server's driver thread and a caller's) start one build, not two.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -36,11 +40,33 @@ LIBRARIES = {
 }
 
 
+class KernelError(RuntimeError):
+    """A kernel library could not be built or queried, or a kernel could
+    not be launched: a fault of the installation or the card, not of the
+    batch being served, so a serving engine re-raises it rather than
+    retrying or quarantining the batch."""
+
+
+def locked_cache(fn):
+    """``functools.cache`` whose first call per arguments runs under a
+    lock: ``cache`` alone lets two threads both miss and both run ``fn``
+    (two ``nvcc`` builds into one path)."""
+    cached = functools.cache(fn)
+    lock = threading.Lock()
+
+    @functools.wraps(fn)
+    def wrapper(*args):
+        with lock:
+            return cached(*args)
+
+    return wrapper
+
+
 def nvcc_path() -> str:
     """The CUDA compiler: ``nvcc`` on PATH, else the toolkit's default."""
     found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(found):
-        raise RuntimeError(
+        raise KernelError(
             "nvcc not found: the CUDA kernels of repro_torch are compiled "
             "at first use and need the CUDA toolkit"
         )
@@ -68,7 +94,7 @@ def build(name: str) -> tuple[Path, float, str]:
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(
+        raise KernelError(
             f"nvcc failed ({proc.returncode}) building {src.name}:\n"
             f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
         )
@@ -76,7 +102,7 @@ def build(name: str) -> tuple[Path, float, str]:
     return out, seconds, proc.stdout + proc.stderr
 
 
-@functools.cache
+@locked_cache
 def load_crossbar() -> ctypes.CDLL:
     """The crossbar-reduce library, built on first call, with its C
     signatures declared (every pointer and the stream as ``c_void_p``),
@@ -98,7 +124,7 @@ def load_crossbar() -> ctypes.CDLL:
     return lib
 
 
-@functools.cache
+@locked_cache
 def load_embedding_bag() -> ctypes.CDLL:
     """The embedding-bag library, built on first call, with its C
     signatures declared (every pointer and the stream as ``c_void_p``),
@@ -119,7 +145,7 @@ def load_embedding_bag() -> ctypes.CDLL:
     return lib
 
 
-@functools.cache
+@locked_cache
 def load_decode_attention() -> ctypes.CDLL:
     """The int8 flash-decode attention library, built on first call, with
     its C signatures declared (every pointer and the stream as

@@ -49,7 +49,7 @@ import functools
 import torch
 
 from repro_torch.kernels import ref as _ref
-from repro_torch.kernels._build import load_crossbar
+from repro_torch.kernels._build import KernelError, load_crossbar
 
 __all__ = [
     "CrossbarLaunchPlan", "crossbar_launch_plan", "crossbar_q_chunk",
@@ -141,7 +141,7 @@ def _occupancy(index: int, dtype: torch.dtype, q_chunk: int) -> tuple[int, int]:
     with torch.cuda.device(index):
         blocks = load_crossbar().crossbar_blocks_per_sm(_DTYPE_CODE[dtype], q_chunk)
     if blocks <= 0:
-        raise RuntimeError(f"crossbar occupancy query failed ({-blocks})")
+        raise KernelError(f"crossbar occupancy query failed ({-blocks})")
     return torch.cuda.get_device_properties(index).multi_processor_count, blocks
 
 
@@ -233,7 +233,7 @@ def crossbar_reduce_cuda(
         )
     if err != 0:
         msg = lib.crossbar_error_string(err).decode()
-        raise RuntimeError(f"crossbar_reduce kernel launch failed: {msg} ({err})")
+        raise KernelError(f"crossbar_reduce kernel launch failed: {msg} ({err})")
     crossbar_reduce_cuda.launches += 1
     return out
 

@@ -31,7 +31,7 @@ import functools
 import math
 
 from repro_torch.kernels import ref as _ref
-from repro_torch.kernels._build import load_decode_attention
+from repro_torch.kernels._build import KernelError, load_decode_attention
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 128, 256)
@@ -59,7 +59,7 @@ def kernels_per_call(n_split: int) -> int:
 def _sm_count(index: int) -> int:
     n = load_decode_attention().decode_attention_sm_count(index)
     if n <= 0:
-        raise RuntimeError(f"cannot read the SM count of cuda:{index}")
+        raise KernelError(f"cannot read the SM count of cuda:{index}")
     return n
 
 
@@ -171,7 +171,7 @@ def fused_decode_attention_cuda(
         )
     if err != 0:
         msg = lib.decode_attention_error_string(err).decode()
-        raise RuntimeError(f"decode_attention kernel launch failed: {msg} ({err})")
+        raise KernelError(f"decode_attention kernel launch failed: {msg} ({err})")
     fused_decode_attention_cuda.launches += 1
     return out, m, l
 

@@ -43,7 +43,7 @@ import functools
 import torch
 
 from repro_torch.kernels import ref as _ref
-from repro_torch.kernels._build import load_embedding_bag
+from repro_torch.kernels._build import KernelError, load_embedding_bag
 
 __all__ = [
     "EmbeddingBagLaunchPlan", "embedding_bag_cuda", "embedding_bag_device_plan",
@@ -149,7 +149,7 @@ def _occupancy(index: int, dtype: torch.dtype) -> tuple[int, int]:
     with torch.cuda.device(index):
         blocks = load_embedding_bag().embedding_bag_blocks_per_sm(_DTYPE_CODE[dtype], THREADS)
     if blocks <= 0:
-        raise RuntimeError(f"embedding_bag occupancy query failed ({-blocks})")
+        raise KernelError(f"embedding_bag occupancy query failed ({-blocks})")
     return torch.cuda.get_device_properties(index).multi_processor_count, blocks
 
 
@@ -231,7 +231,7 @@ def embedding_bag_cuda(
         )
     if err != 0:
         msg = lib.embedding_bag_error_string(err).decode()
-        raise RuntimeError(f"embedding_bag kernel launch failed: {msg} ({err})")
+        raise KernelError(f"embedding_bag kernel launch failed: {msg} ({err})")
     embedding_bag_cuda.launches += 1
     return out
 

@@ -1,25 +1,31 @@
-"""Sharded multi-table serving launcher (PyTorch port, global flushes).
+"""Sharded multi-table serving launcher (PyTorch port).
 
 Stands up a :class:`~repro_torch.serve.sharded.ShardedEmbeddingServer`
 over synthetic tables on one device (``--shards`` are emulated in the
 shard loop), drives a stream of per-table Zipf queries through
-``submit``/``flush`` and prints the report as JSON.
+``submit``/``flush`` (or, with ``--producers N``, from N producer threads
+and one final ``drain``) and prints the report as JSON.
 
 Usage::
 
     PYTHONPATH=src python -m repro_torch.launch.serve_sharded
     PYTHONPATH=src python -m repro_torch.launch.serve_sharded --device cpu \\
         --rows 512 --history 256 --requests 128 --batch-size 32
+    PYTHONPATH=src python -m repro_torch.launch.serve_sharded --shards 4 \\
+        --flush-policy owner-set --owner-set-max 2 --threaded --producers 2 --skew 3
 
 The device defaults to ``cuda``; there is no fallback to the CPU, which
 runs the kernels' plain versions only when asked for with ``--device cpu``.
-The module is import-safe: arguments are parsed only under ``__main__``.
+The run fails (non-zero exit) if a producer thread raised or the server
+quarantined any query.  The module is import-safe: arguments are parsed
+only under ``__main__``.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import threading
 import time
 
 
@@ -39,6 +45,45 @@ def parse_args(argv=None):
     ap.add_argument("--group-size", type=int, default=64)
     ap.add_argument("--mean-bag", type=float, default=12.0)
     ap.add_argument("--combine-chunks", type=int, default=2)
+    ap.add_argument("--flush-policy",
+                    choices=["global", "per-shard", "deadline", "owner-set"],
+                    default="global",
+                    help="global: synchronous fused flushes; per-shard/deadline: "
+                         "shards flush independently as their block unions fill, "
+                         "host compile pipelined against device execution; "
+                         "owner-set: multi-owner queries key their home by the "
+                         "frozen owner set and flush over exactly those shards "
+                         "(DESIGN.md §7)")
+    ap.add_argument("--owner-set-max", type=int, default=None,
+                    help="owner-set policy: sets larger than this pool up "
+                         "instead of getting their own home (None: every set)")
+    ap.add_argument("--producers", type=int, default=1,
+                    help="concurrent producer threads (DESIGN.md §10): the "
+                         "stream splits round-robin, each thread submits under "
+                         "its own label and one final drain merges the streams "
+                         "in (local_seq, producer_id) order; > 1 requires an "
+                         "async --flush-policy")
+    ap.add_argument("--threaded", action="store_true",
+                    help="run the async engine on a driver thread: submit() "
+                         "only validates and enqueues (DESIGN.md §7.2)")
+    ap.add_argument("--union-budget", type=int, default=None,
+                    help="per-home block-union fill that triggers a flush")
+    ap.add_argument("--flush-deadline", type=int, default=None,
+                    help="max submissions a pending query waits before a "
+                         "forced flush (deadline/owner-set default 4x batch-size)")
+    ap.add_argument("--max-in-flight", type=int, default=2,
+                    help="bound on dispatched-but-unretired async flushes")
+    ap.add_argument("--skew", type=float, default=1.0,
+                    help="per-table arrival skew: table i receives weight "
+                         "skew^-i of the stream (1.0 = uniform)")
+    ap.add_argument("--watchdog", type=float, default=None,
+                    help="per-flush watchdog deadline in seconds: a flush not "
+                         "ready by then raises on the card (its batch is "
+                         "requeued); with --device cpu the host gather+sum "
+                         "serves it")
+    ap.add_argument("--max-retries", type=int, default=2,
+                    help="in-place re-dispatch attempts per failed flush "
+                         "before bisection/quarantine")
     return ap.parse_args(argv)
 
 
@@ -47,7 +92,7 @@ def main(args) -> dict:
 
     from repro_torch.convert import tables_from_numpy
     from repro_torch.data import zipf_queries
-    from repro_torch.serve import ShardedEmbeddingServer
+    from repro_torch.serve import RetryPolicy, ShardedEmbeddingServer
 
     rng = np.random.default_rng(0)
     tables = tables_from_numpy({
@@ -63,23 +108,77 @@ def main(args) -> dict:
         num_shards=args.shards, q_block=args.q_block,
         group_size=args.group_size, batch_size=args.batch_size,
         combine_chunks=args.combine_chunks, device=args.device,
+        flush_policy=args.flush_policy,
+        union_budget=args.union_budget,
+        flush_deadline=args.flush_deadline,
+        owner_set_max=args.owner_set_max,
+        max_in_flight=args.max_in_flight,
+        threaded=args.threaded,
+        retry=RetryPolicy(max_retries=args.max_retries, watchdog_s=args.watchdog),
     )
     stream = zipf_queries(args.rows, args.requests, args.mean_bag, seed=1234)
     names = list(tables)
+    # per-table arrival replay: round robin at skew 1, weighted choice
+    # otherwise (table i's arrival rate ∝ skew^-i)
+    if args.skew != 1.0:
+        w = np.power(float(args.skew), -np.arange(len(names)))
+        pick = np.random.default_rng(5).choice(len(names), size=len(stream), p=w / w.sum())
+    else:
+        pick = np.arange(len(stream)) % len(names)
     flushed = 0
-    t0 = time.perf_counter()
-    for i, q in enumerate(stream):
-        if server.submit(names[i % len(names)], q):
+    if args.producers > 1:
+        if args.flush_policy == "global":
+            raise SystemExit("--producers > 1 requires an async --flush-policy")
+        labels = [f"p{i}" for i in range(args.producers)]
+        slices = {
+            lab: [(names[int(pick[i])], stream[i])
+                  for i in range(len(stream)) if i % args.producers == p]
+            for p, lab in enumerate(labels)
+        }
+        # registration order pins producer ids (the merge tiebreak)
+        for lab in labels:
+            server.register_producer(lab)
+
+        errors = []
+
+        def run(lab):
+            try:
+                for name, q in slices[lab]:
+                    server.submit(name, q, producer=lab)
+            except Exception as e:  # re-raised on the main thread below
+                errors.append(e)
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=run, args=(lab,), name=lab) for lab in labels]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            server.close()
+            raise errors[0]
+        if server.drain():
             flushed += 1
-    if server.flush():
-        flushed += 1
-    wall = time.perf_counter() - t0
+        wall = time.perf_counter() - t0
+    else:
+        t0 = time.perf_counter()
+        for i, q in enumerate(stream):
+            if server.submit(names[int(pick[i])], q):
+                flushed += 1
+        if server.flush():
+            flushed += 1
+        wall = time.perf_counter() - t0
     server.close()
     report = server.report()
     report["flushes"] = flushed
     report["replay_wall_s"] = wall
+    report["producers"] = args.producers
     return report
 
 
 if __name__ == "__main__":
-    print(json.dumps(main(parse_args()), indent=1, default=str))
+    report = main(parse_args())
+    print(json.dumps(report, indent=1, default=str))
+    quarantined = report["serve"]["faults"]["quarantined"]
+    if quarantined:
+        raise SystemExit(f"{len(quarantined)} queries quarantined: {quarantined}")

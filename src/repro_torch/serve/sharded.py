@@ -1,34 +1,65 @@
-"""Sharded multi-table embedding serving driver, synchronous path.
+"""Sharded multi-table embedding serving driver.
 
-The port of ``repro.serve.sharded`` under the ``"global"`` flush policy
-(DESIGN.md §4).  Glues the offline pipeline to the sharded online path
-for a *set* of DLRM embedding tables:
+The port of ``repro.serve.sharded`` (DESIGN.md §4, §7, §8, §10).  Glues
+the offline pipeline to the sharded online path for a *set* of DLRM
+embedding tables:
 
   per table: history → co-occurrence → grouping (Alg. 1) → Eq.-1
   log-scaled replication → layout, then one :class:`~repro_torch.dist.
   shard_plan.ShardPlan` over the fused tile space and one stacked shard
   image, allocated once on the device.
 
-Requests accumulate per table in the server's buffer; at ``batch_size``
-buffered queries (or on :meth:`flush`) each table's batch is compiled on
-the host (block-granular replica choice), rebased into the fused tile
-space, block-compiled per shard, and reduced by
-:func:`repro_torch.kernels.sharded.crossbar_reduce_tables` — the CUDA
-crossbar kernel once per shard and combine chunk, combined in float32.
+A flush compiles each table's batch on the host (block-granular replica
+choice), rebases it into the fused tile space, block-compiles it per
+shard, and reduces it with :func:`repro_torch.kernels.sharded.
+crossbar_reduce_tables` — the CUDA crossbar kernel once per shard and
+combine chunk, combined in float32.
+
+**Flush policies.**  Under ``"global"`` requests accumulate in one
+buffer and flush synchronously at ``batch_size``.  Under
+``"per-shard"`` / ``"deadline"`` / ``"owner-set"`` the loop becomes a
+pipelined engine: queries route to homes
+(:class:`~repro_torch.serve.scheduler.FlushScheduler`), homes flush
+independently, a subset flush compiles with ``participants=`` exactly
+the home's shards, and each dispatch is non-blocking — the host
+compiles flush *n+1* while flush *n* runs on the card.  Each dispatched
+flush records a ``torch.cuda.Event`` on the server's stream after its
+last kernel; readiness is ``event.query()`` and result hand-off waits
+on ``event.synchronize()`` (bounded in-flight queue / :meth:`drain`).
+Every dispatch, and the thread driver's whole loop, runs on the one
+stream the server captured at construction.  Retired rows stay on the
+device until :meth:`drain` merges them.
+
+**Thread driver** (``threaded=True``): the dispatch/retire loop moves
+to a driver thread; ``submit()`` validates, stamps a sequence id and
+enqueues onto a bounded hand-off queue.  **Multi-producer front door**:
+each ``producer=`` owns a per-table sequence space
+(:mod:`repro_torch.serve.producers`) and a full drain merges streams in
+the deterministic ``(local_seq, producer_id)`` order.  **Self-healing**
+(``retry=``): a failed dispatch retries with backoff, bisects down to a
+single offender and quarantines it (:class:`~repro_torch.serve.faults.
+ErrorLedger`); a kernel that cannot be built or launched
+(:class:`~repro_torch.kernels._build.KernelError`) is re-raised instead.
+A flush past the watchdog degrades to a host gather+sum over the logical
+tables on a CPU server; on the card its batch goes back to its home and
+:class:`~repro_torch.serve.faults.FlushTimeout` raises, since work never
+moves from the card to the host.
 
 Not ported yet, and refused with ``NotImplementedError`` naming the slice
-that brings them: the async flush policies and thread driver (scheduler
-slice), online replanning (drift/replan slice), tiered storage and fault
-injection (tiers and faults slice), and ``mesh=`` (``torch.distributed``
-slice).
+that brings them: online replanning (drift/replan slice), tiered storage
+and fault injection (tiers and faults slice), and ``mesh=``
+(``torch.distributed`` slice).
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
+import queue
 import threading
 import time
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -44,31 +75,61 @@ from repro_torch.core.reduction import (
 )
 from repro_torch.core.replication import plan_replication
 from repro_torch.dist.shard_plan import ShardPlan, build_fused_image, plan_shards
+from repro_torch.kernels._build import KernelError
 from repro_torch.kernels.sharded import (
     combine_bytes_per_batch,
     crossbar_reduce_tables,
     dispatch_cache_stats,
 )
+from repro_torch.serve.faults import (
+    ErrorLedger,
+    FlushTimeout,
+    RetryPolicy,
+    latency_percentiles,
+)
+from repro_torch.serve.producers import ProducerRegistry
+from repro_torch.serve.scheduler import FlushPolicy, FlushScheduler
 
 
-def latency_percentiles(samples: Sequence[float]) -> Dict[str, float]:
-    """p50/p95/p99 of a latency sample list (seconds; zeros when empty)."""
-    if not samples:
-        return {"p50": 0.0, "p95": 0.0, "p99": 0.0}
-    a = np.asarray(samples, dtype=np.float64)
-    return {
-        "p50": float(np.percentile(a, 50)),
-        "p95": float(np.percentile(a, 95)),
-        "p99": float(np.percentile(a, 99)),
-    }
+@dataclasses.dataclass
+class _InFlight:
+    """One dispatched-but-unretired flush (DESIGN.md §7.2)."""
+
+    outs: List[torch.Tensor]               # per-table kernel outputs
+    sbq: object                            # the flush's ShardedBlockedQueries
+    served: List[str]                      # table names, outs order
+    seqs: Dict[str, np.ndarray]            # per-table submission sequence ids
+    t0: float                              # host compile start (perf_counter)
+    n_queries: int
+    # recorded on the server's stream after the flush's last kernel;
+    # None (CPU tensors, a test stub) counts as complete
+    event: Optional[object] = None
+    # ---- healing metadata (DESIGN.md §8): the raw batch so a retire-
+    # time fault can re-dispatch it and a watchdog timeout can degrade
+    # it to the host path ----
+    home: object = None
+    entries: Optional[List[tuple]] = None  # raw (table, seq, query) triples
+    participants: Optional[List[int]] = None
+    t_dispatch: float = 0.0                # kernel dispatch (perf_counter)
+
+
+#: bound of the driver-failure stash (first-in surfaces first; overflow
+#: is counted, never silently dropped) — see _stash_driver_error
+_MAX_STASHED_ERRORS = 8
 
 
 @dataclasses.dataclass
 class ShardedServeStats:
     """Accumulated per-flush accounting of the sharded datapath.
 
-    Latency samples are kept raw (one float per flush / per submit) so
-    :meth:`summary` can report percentiles.
+    Under an async flush policy ``wall_s`` is the sum of per-flush
+    dispatch→retire latencies, which OVERLAP; the pipelining shows up as
+    ``hidden_compile_s`` (host compile time that ran while an earlier
+    flush was still running on the card) over ``host_compile_s``.
+    Latency samples are kept raw (one float per flush / per submit / per
+    async query) so :meth:`summary` can report percentiles.  The replan
+    and tier counters keep the reference's schema and stay zero until
+    their slices are ported.
     """
 
     num_shards: int
@@ -82,15 +143,42 @@ class ShardedServeStats:
     max_shard_width: int = 0               # widest per-shard block union seen
     combine_bytes: int = 0
     wall_s: float = 0.0
+    # ---- async flush scheduling (DESIGN.md §7) ----
+    shard_flushes: Dict[object, int] = dataclasses.field(default_factory=dict)
     participant_sizes: Dict[int, int] = dataclasses.field(default_factory=dict)
+    barrier_flushes: int = 0               # pipeline drains (explicit)
+    deadline_flushes: int = 0              # flushes forced by query age
     host_compile_s: float = 0.0            # Σ per-flush host compile time
+    hidden_compile_s: float = 0.0          # … of which overlapped device exec
+    in_flight_peak: int = 0                # deepest dispatch queue seen
     flush_wall: List[float] = dataclasses.field(default_factory=list)
     submit_wall: List[float] = dataclasses.field(default_factory=list)
-    unserved_at_close: int = 0             # buffered queries close() dropped
+    # submit-stamp → result-retired, one sample per async query
+    # (quarantined queries never complete, so they never sample)
+    e2e_wall: List[float] = dataclasses.field(default_factory=list)
+    # ---- online replanning (DESIGN.md §6; drift/replan slice) ----
+    replans: int = 0
+    rebases: int = 0
+    patched_tiles: int = 0
+    promoted_groups: int = 0
+    demoted_groups: int = 0
+    # ---- tiered host/device storage (DESIGN.md §9; tiers slice) ----
+    hot_queries: int = 0
+    host_queries: int = 0
+    host_flushes: int = 0
+    host_deadline_flushes: int = 0
+    sync_cold_batches: int = 0
+    fetched_tiles: int = 0
+    evicted_tiles: int = 0
+    paging_bytes: int = 0
+    load_obs_hits: int = 0
+    load_obs_misses: int = 0
+    # ---- failure/recovery accounting (DESIGN.md §8) ----
+    ledger: ErrorLedger = dataclasses.field(default_factory=ErrorLedger)
 
     def record(self, sbq, dim: int, wall_s: float, queries: int) -> None:
         """Accounts one served batch: grid cells, widths, combine
-        traffic, wall time."""
+        traffic (scaled to the flush's participant set), wall time."""
         cells = sbq.grid_cells_per_shard()
         self.batches += 1
         self.queries += queries
@@ -112,8 +200,31 @@ class ShardedServeStats:
         self.wall_s += wall_s
         self.flush_wall.append(wall_s)
 
+    def record_flush_home(self, home) -> None:
+        """Counts one dispatched flush against its home (an int shard,
+        the POOL sentinel -1, or an owner-set tuple)."""
+        self.shard_flushes[home] = self.shard_flushes.get(home, 0) + 1
+
+    def record_submit(self, seconds: float) -> None:
+        """Accounts one submit() call's host latency."""
+        self.submit_wall.append(seconds)
+
+    def record_compile(self, seconds: float, *, hidden: bool) -> None:
+        """Accounts one flush's host compile; ``hidden`` when at least
+        one earlier flush was still running on the card as it ended."""
+        self.host_compile_s += seconds
+        if hidden:
+            self.hidden_compile_s += seconds
+
+    @property
+    def overlap_fraction(self) -> float:
+        """Fraction of host compile time hidden behind device execution."""
+        return (self.hidden_compile_s / self.host_compile_s
+                if self.host_compile_s > 0 else 0.0)
+
     def summary(self) -> Dict[str, object]:
-        """Flat metrics dict for reports (counters, latency percentiles)."""
+        """Flat metrics dict for reports (counters, latency percentiles,
+        tier and failure accounting) — the reference's keys."""
         return {
             "num_shards": self.num_shards,
             "q_block": self.q_block,
@@ -126,13 +237,54 @@ class ShardedServeStats:
             "max_shard_width": self.max_shard_width,
             "combine_bytes": self.combine_bytes,
             "wall_s": self.wall_s,
+            "shard_flushes": {
+                str(k): v for k, v in sorted(
+                    self.shard_flushes.items(), key=lambda kv: str(kv[0])
+                )
+            },
             "participant_sizes": {
                 str(k): v for k, v in sorted(self.participant_sizes.items())
             },
             "flush_latency_s": latency_percentiles(self.flush_wall),
             "submit_latency_s": latency_percentiles(self.submit_wall),
+            "e2e_latency_s": latency_percentiles(self.e2e_wall),
+            "barrier_flushes": self.barrier_flushes,
+            "deadline_flushes": self.deadline_flushes,
             "host_compile_s": self.host_compile_s,
-            "unserved_at_close": self.unserved_at_close,
+            "hidden_compile_s": self.hidden_compile_s,
+            "overlap_fraction": self.overlap_fraction,
+            "in_flight_peak": self.in_flight_peak,
+            "replans": self.replans,
+            "rebases": self.rebases,
+            "patched_tiles": self.patched_tiles,
+            "promoted_groups": self.promoted_groups,
+            "demoted_groups": self.demoted_groups,
+            "tiers": self.tier_summary(),
+            "faults": self.ledger.summary(),
+        }
+
+    def tier_summary(self) -> Dict[str, object]:
+        """Hot-tier metrics under the reference's keys (all-resident
+        until the tiers slice is ported)."""
+        routed = self.hot_queries + self.host_queries
+        return {
+            "hot_queries": self.hot_queries,
+            "host_queries": self.host_queries,
+            "hot_tier_hit_rate": (
+                self.hot_queries / routed if routed else 1.0
+            ),
+            "host_path_fraction": (
+                self.host_queries / routed if routed else 0.0
+            ),
+            "host_flushes": self.host_flushes,
+            "host_deadline_flushes": self.host_deadline_flushes,
+            "sync_cold_batches": self.sync_cold_batches,
+            "fetched_tiles": self.fetched_tiles,
+            "evicted_tiles": self.evicted_tiles,
+            "paged_tiles": self.fetched_tiles + self.evicted_tiles,
+            "paging_bytes": self.paging_bytes,
+            "load_obs_hits": self.load_obs_hits,
+            "load_obs_misses": self.load_obs_misses,
         }
 
 
@@ -144,19 +296,22 @@ def _not_ported(what: str, slice_name: str):
 
 
 def _host_table(t: torch.Tensor) -> np.ndarray:
-    """Host copy for the plan/image build (bf16 widens to float32, which
-    the permutation-only image build carries exactly)."""
+    """Host copy for the plan/image build and the CPU degrade path (bf16
+    widens to float32, which the permutation-only image build carries
+    exactly)."""
     t = t.detach().cpu()
     return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
 class ShardedEmbeddingServer:
-    """Multi-table embedding-reduction server, synchronous global flushes.
+    """Multi-table embedding-reduction server.
 
     Args:
       tables: ``{name: (rows, dim) tensor}`` logical tables
         (:func:`repro_torch.convert.tables_from_numpy` makes them from the
-        JAX side's arrays).  The image keeps their dtype.
+        JAX side's arrays).  The image keeps their dtype.  A CPU server
+        under an async policy keeps a host copy of each (float32 for
+        bf16) for the watchdog's degrade path; a CUDA server keeps none.
       histories: ``{name: ragged lookup history}`` driving the offline
         pipeline (grouping + Eq.-1 replication) per table.
       num_shards: shards to plan for; emulated on one device.
@@ -166,10 +321,24 @@ class ShardedEmbeddingServer:
       batch_size_for_eq1: Eq. 1's ``batch``; defaults to ``batch_size``.
       combine_chunks: block-axis chunks (one kernel launch each per shard).
       dynamic_switch: enable the paper's §III-D READ/MAC switch.
-      device: where the shard images live and the kernels run.
-      mesh, flush_policy, replan, tiers, faults, threaded: the reference
-        server's other modes; anything but the defaults raises
-        ``NotImplementedError`` naming the slice that ports it.
+      device: where the shard images live and the kernels run.  On a
+        CUDA device every dispatch runs on the stream current at
+        construction.
+      flush_policy: ``"global"`` (synchronous, default) or an async kind
+        — ``"per-shard"`` / ``"deadline"`` / ``"owner-set"`` — or a full
+        :class:`~repro_torch.serve.scheduler.FlushPolicy`.  Results of an
+        async policy are collected with :meth:`drain` (or :meth:`flush`,
+        a barrier in async mode).  DESIGN.md §7.
+      union_budget / flush_deadline / flush_deadline_s / owner_set_max /
+        max_in_flight: async policy knobs (see :class:`~repro_torch.
+        serve.scheduler.FlushPolicy`).
+      threaded: run the async engine on a driver thread; :meth:`close`
+        (or the context manager) stops it.  Requires an async policy.
+      retry: the self-healing policy (:class:`~repro_torch.serve.faults.
+        RetryPolicy`; ``None`` = defaults, healing on, watchdog off).
+      mesh, replan, tiers, faults: the reference server's other modes;
+        anything but ``None`` raises ``NotImplementedError`` naming the
+        slice that ports it.
     """
 
     def __init__(
@@ -186,19 +355,20 @@ class ShardedEmbeddingServer:
         dynamic_switch: bool = True,
         device="cuda",
         mesh=None,
-        flush_policy: str = "global",
+        flush_policy: str | FlushPolicy = "global",
+        union_budget: int | None = None,
+        flush_deadline: int | None = None,
+        flush_deadline_s: float | None = None,
+        owner_set_max: int | None = None,
+        max_in_flight: int = 2,
+        threaded: bool = False,
+        retry: RetryPolicy | None = None,
         replan=None,
         tiers=None,
         faults=None,
-        threaded: bool = False,
     ):
         if mesh is not None:
             raise _not_ported("mesh= (one shard per device)", "torch.distributed")
-        if flush_policy != "global" or threaded:
-            raise _not_ported(
-                f"flush_policy={flush_policy!r} threaded={threaded}",
-                "scheduler / thread driver",
-            )
         if replan is not None:
             raise _not_ported("replan=", "drift/replan")
         if tiers is not None or faults is not None:
@@ -207,6 +377,25 @@ class ShardedEmbeddingServer:
             raise ValueError("tables and histories must cover the same names")
         if not tables:
             raise ValueError("need at least one table")
+        knobs_set = (union_budget is not None or flush_deadline is not None
+                     or flush_deadline_s is not None
+                     or owner_set_max is not None or max_in_flight != 2
+                     or threaded)
+        if isinstance(flush_policy, str):
+            if knobs_set:
+                flush_policy = FlushPolicy(
+                    kind=flush_policy, union_budget=union_budget,
+                    deadline=flush_deadline, deadline_s=flush_deadline_s,
+                    owner_set_max=owner_set_max,
+                    max_in_flight=max_in_flight, threaded=threaded,
+                )
+        elif knobs_set:
+            raise ValueError(
+                "pass the flush knobs inside the FlushPolicy instance OR "
+                "as keyword args with a policy-kind string, not both"
+            )
+        self.policy = FlushPolicy.parse(flush_policy, batch_size=batch_size)
+        self.retry = RetryPolicy.parse(retry)
         self.names = sorted(tables)
         self.num_shards = num_shards
         self.q_block = q_block
@@ -214,12 +403,20 @@ class ShardedEmbeddingServer:
         self.combine_chunks = combine_chunks
         self.dynamic_switch = dynamic_switch
         self.device = torch.device(device)
+        #: every dispatch and the driver thread's loop run on this stream
+        self._stream = (
+            torch.cuda.current_stream(self.device)
+            if self.device.type == "cuda" else None
+        )
 
         dtypes = {tables[n].dtype for n in self.names}
         if len(dtypes) != 1:
             raise ValueError("fused serving requires a uniform table dtype")
         self.dtype = dtypes.pop()
         eq1_batch = batch_size_for_eq1 or batch_size
+        # host copies of the logical tables: the plan/image build reads
+        # them; an async CPU server keeps them for the watchdog's degraded
+        # flush (reference gather+sum), a CUDA server frees them here
         host = {n: _host_table(tables[n]) for n in self.names}
         self.layouts, plans, gfreqs = [], [], []
         dims = set()
@@ -240,19 +437,88 @@ class ShardedEmbeddingServer:
         )
         fused = build_fused_image(self.layouts, [host[n] for n in self.names])
         images = self.plan.build_shard_images(fused)
-        del fused, host
+        del fused
         #: (num_shards, max_local_tiles, tile_rows, dim), allocated once
         self.shard_images = torch.from_numpy(images).to(
             device=self.device, dtype=self.dtype
         )
         del images
-        self.stats = ShardedServeStats(num_shards=num_shards, q_block=q_block)
+        self.stats = ShardedServeStats(
+            num_shards=num_shards, q_block=q_block, policy=self.policy.kind
+        )
         self._num_rows = {n: int(tables[n].shape[0]) for n in self.names}
+        self._host_tables: Optional[Dict[str, np.ndarray]] = (
+            host if self.device.type == "cpu" and self.policy.is_async else None
+        )
+        del host
         self._buffer: Dict[str, List[List[int]]] = {n: [] for n in self.names}
         self._buffered = 0
+        # ---- async flush engine state (DESIGN.md §7); inert under the
+        # synchronous "global" policy ----
+        # per-producer sequence spaces (DESIGN.md §10): every stamped id
+        # packs (local_seq, producer_id) into one int64
+        self._registry = ProducerRegistry()
+        self.scheduler: Optional[FlushScheduler] = (
+            FlushScheduler(self.plan, self.layouts, self.names,
+                           q_block, self.policy,
+                           seq_decode=self._registry.decode)
+            if self.policy.is_async else None
+        )
+        self._in_flight: collections.deque = collections.deque()
+        # retired rows stay on the device: (seqs, rows tensor) chunks
+        self._completed: Dict[str, List[Tuple[np.ndarray, torch.Tensor]]] = {
+            n: [] for n in self.names
+        }
+        self._retry_rng = np.random.default_rng(self.retry.seed)
+        # ---- thread driver state (DESIGN.md §7.2); started lazily on
+        # the first submit under a threaded policy ----
+        self._handoff: Optional[queue.Queue] = None
+        self._driver: Optional[threading.Thread] = None
+        self._driver_stop = threading.Event()
+        # driver failures stash into a BOUNDED deque: the first error is
+        # surfaced first (with the count of others), overflow beyond the
+        # bound is counted in the ledger
+        self._driver_errors: collections.deque = collections.deque()
+        self._suppressed_errors = 0
+        # stamp lock: registration + seq stamp + closed check + driver
+        # start are one atomic step
+        # lock order (DESIGN.md §5): 3rd — after engine/results, before
+        # the registry's lock
+        self._stamp_lock = threading.Lock()
+        # engine lock: serializes the global buffer and the INLINE async
+        # engine under concurrent producers; the thread driver never
+        # takes it (the hand-off queue is its serialization)
+        # lock order (DESIGN.md §5): outermost — taken before any other
+        self._engine_lock = threading.RLock()
+        # results lock: _completed appends (retire) vs the drain-time
+        # extract-and-swap
+        # lock order (DESIGN.md §5): 2nd — after engine, before stamp
+        self._results_lock = threading.Lock()
         self._closed = False
-        # serializes buffer mutation and flushes under concurrent submits
-        self._lock = threading.RLock()
+        # submits past the stamp but not yet delivered — the seq-reset
+        # guard and close()'s drain loop both key off this being zero
+        self._pending_submits = 0
+        # submit-stamp timestamps, popped when the row retires — the
+        # e2e_latency_s samples (async paths only)
+        self._e2e_t0: Dict[Tuple[str, int], float] = {}
+
+    def _on_stream(self):
+        """Makes the server's device and stream current (no-op on CPU)."""
+        if self._stream is None:
+            return contextlib.nullcontext()
+        stack = contextlib.ExitStack()
+        stack.enter_context(torch.cuda.device(self.device))
+        stack.enter_context(torch.cuda.stream(self._stream))
+        return stack
+
+    def _record_event(self):
+        """An event after the work queued so far on the server's stream
+        (``None`` on CPU, where the work is already done)."""
+        if self._stream is None:
+            return None
+        event = torch.cuda.Event()
+        event.record(self._stream)
+        return event
 
     # ------------------------------------------------------------ serving --
 
@@ -263,7 +529,9 @@ class ShardedEmbeddingServer:
 
         Compiles each table's ragged queries on the host, rebases them
         into the fused tile space, block-compiles per shard, runs the
-        sharded kernel and waits for it on the outputs' stream.
+        sharded kernel and waits for it.  On an async server this is a
+        barrier first: pending and in-flight work drains before the
+        batch compiles.
 
         Args:
           queries_by_table: ``{table name: ragged row-id queries}``;
@@ -283,27 +551,33 @@ class ShardedEmbeddingServer:
         served = [n for n in self.names if queries_by_table.get(n)]
         if not served:
             return {}
+        if self.scheduler is not None:
+            self._barrier()
         queries_of = {n: list(queries_by_table[n]) for n in served}
-        tc = time.perf_counter()
-        sbq, spans = self._compile_batch(served, queries_of)
-        self.stats.host_compile_s += time.perf_counter() - tc
-        outs = crossbar_reduce_tables(
-            self.shard_images, sbq, spans,
-            combine_chunks=self.combine_chunks,
-            dynamic_switch=self.dynamic_switch,
-        )
-        if self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
+        with self._on_stream():
+            tc = time.perf_counter()
+            sbq, spans = self._compile_batch(served, queries_of)
+            # a synchronous compile sits on the serving critical path
+            self.stats.record_compile(time.perf_counter() - tc, hidden=False)
+            outs = crossbar_reduce_tables(
+                self.shard_images, sbq, spans,
+                combine_chunks=self.combine_chunks,
+                dynamic_switch=self.dynamic_switch,
+            )
+            event = self._record_event()
+        if event is not None:
+            event.synchronize()
         self.stats.record(
             sbq, self.dim, time.perf_counter() - t0,
             sum(len(queries_of[n]) for n in served),
         )
         return dict(zip(served, outs))
 
-    def _compile_batch(self, served, queries_of):
+    def _compile_batch(self, served, queries_of, participants=None):
         """Fused host compile: per-table compile (block-granular replica
         choice) → rebase into the fused tile space → concat (blocks never
-        span tables) → per-shard block compile, moved to the device.
+        span tables) → per-shard block compile for ``participants``
+        (``None`` = every shard), moved to the device.
 
         Returns ``(sbq, spans)``.
         """
@@ -317,62 +591,151 @@ class ShardedEmbeddingServer:
             cqs.append(offset_compiled_queries(cq, self.plan.tables[i].tile_offset))
         fused_cq, spans = concat_compiled_queries(cqs, self.q_block)
         sbq = shard_block_queries(
-            fused_cq, self.plan, self.q_block, device=self.device
+            fused_cq, self.plan, self.q_block,
+            participants=participants, device=self.device,
         )
         return sbq, spans
 
     # ----------------------------------------------------------- batching --
 
-    def submit(self, table: str, query: Sequence[int]) -> Dict[str, torch.Tensor]:
-        """Buffers one query; auto-flushes at ``batch_size`` buffered.
+    def submit(
+        self,
+        table: str,
+        query: Sequence[int],
+        *,
+        producer=None,
+    ) -> Dict[str, torch.Tensor]:
+        """Buffers one query; flush behavior depends on the policy.
 
-        The query is validated before it is buffered: row ids outside the
-        table raise and leave the buffer untouched.
+        Under ``"global"``: auto-flushes (synchronously) at
+        ``batch_size`` buffered and returns that flush's results.  Under
+        an async policy: the query routes to its home, due homes flush
+        asynchronously (dispatch only), and the return value is always
+        ``{}``; collect results with :meth:`drain` / :meth:`flush`.
+        With the thread driver the call only validates, stamps a
+        sequence id and enqueues onto the bounded hand-off queue.
+
+        ``producer=`` names the calling stream (any hashable; ``None``
+        is the default producer), lazily registered on first stamp; each
+        producer owns its own per-table sequence space (DESIGN.md §10).
+
+        The query is validated before anything is enqueued or a sequence
+        id is consumed: row ids outside the table raise and leave every
+        buffer and queue untouched.
 
         Returns:
-          The flush result (see :meth:`flush`) when a flush tripped,
-          else ``{}``.
+          The flush result when a synchronous flush tripped, else ``{}``.
 
         Raises:
           KeyError: ``table`` is not a served table.
           IndexError: a row id falls outside ``[0, rows)``.
-          RuntimeError: the server was closed.
+          RuntimeError: the server was :meth:`close`\\ d.
         """
         t0 = time.perf_counter()
         try:
-            if table not in self._buffer:
-                raise KeyError(f"unknown table {table!r}")
-            ids = np.asarray(list(query), dtype=np.int64)
-            if ids.size:
-                lo, hi = int(ids.min()), int(ids.max())
-                if lo < 0 or hi >= self._num_rows[table]:
-                    raise IndexError(
-                        f"query row ids [{lo}, {hi}] out of range "
-                        f"[0, {self._num_rows[table]}) for table {table!r}"
-                    )
-            with self._lock:
+            return self._submit(table, query, producer)
+        finally:
+            self.stats.record_submit(time.perf_counter() - t0)
+
+    def _submit(
+        self, table: str, query: Sequence[int], producer=None
+    ) -> Dict[str, torch.Tensor]:
+        if table not in self._buffer:  # unlocked: key set frozen at init
+            raise KeyError(f"unknown table {table!r}")
+        ids = np.asarray(list(query), dtype=np.int64)
+        if ids.size:
+            lo, hi = int(ids.min()), int(ids.max())
+            if lo < 0 or hi >= self._num_rows[table]:
+                raise IndexError(
+                    f"query row ids [{lo}, {hi}] out of range "
+                    f"[0, {self._num_rows[table]}) for table {table!r}"
+                )
+        if self.scheduler is not None:
+            self._raise_driver_error()
+            if self.policy.threaded:
+                with self._stamp_lock:
+                    # closed-check + stamp + driver-start are one atomic
+                    # step: a close() cannot slip between a granted stamp
+                    # and its hand-off accounting, and two producers'
+                    # first submits cannot start two drivers
+                    if self._closed:
+                        raise RuntimeError(
+                            "submit() on a closed server: close() "
+                            "stopped the driver; drain() still serves "
+                            "what was already submitted"
+                        )
+                    seq = self._registry.stamp(producer, table)
+                    if self._driver is None:
+                        self._start_driver()
+                    handoff = self._handoff
+                    self._e2e_t0[(table, seq)] = time.perf_counter()
+                    self._pending_submits += 1
+                try:
+                    handoff.put(("query", table, seq, list(query)))
+                finally:
+                    with self._stamp_lock:
+                        self._pending_submits -= 1
+                return {}
+            with self._stamp_lock:
                 if self._closed:
                     raise RuntimeError("submit() on a closed server")
-                self._buffer[table].append(ids.tolist())
-                self._buffered += 1
-                if self._buffered >= self.batch_size:
-                    return self.flush()
+                seq = self._registry.stamp(producer, table)
+                self._e2e_t0[(table, seq)] = time.perf_counter()
+                self._pending_submits += 1
+            try:
+                # the inline engine is not re-entrant: concurrent
+                # producers serialize here
+                with self._engine_lock:
+                    self._ingest(table, seq, query)
+            finally:
+                with self._stamp_lock:
+                    self._pending_submits -= 1
             return {}
-        finally:
-            self.stats.submit_wall.append(time.perf_counter() - t0)
+        with self._engine_lock:
+            if self._snapshot_closed():
+                raise RuntimeError("submit() on a closed server")
+            self._buffer[table].append(ids.tolist())
+            self._buffered += 1
+            if self._buffered >= self.batch_size:
+                return self.flush()
+        return {}
+
+    def register_producer(self, producer=None) -> int:
+        """Pre-registers a producer label, returning its pid.
+
+        Optional — a first ``submit(producer=...)`` registers lazily —
+        but registration order is the cross-producer merge tiebreak
+        (DESIGN.md §10), so callers that want a reproducible interleave
+        register every label before any thread races a first stamp.
+        """
+        return self._registry.register(producer)
+
+    def next_seq(self, table: str, producer=None) -> int:
+        """Next LOCAL sequence id ``producer`` (default stream when
+        ``None``) would stamp on ``table``; 0 for a producer that never
+        submitted or after a quiesced drain's reset."""
+        return self._registry.next_seq(table, producer)
+
+    def producers(self) -> List:
+        """Registered producer labels in pid (merge-tiebreak) order."""
+        return self._registry.producers()
 
     def flush(self) -> Dict[str, torch.Tensor]:
         """Serves and clears all buffered work.
 
-        The buffer is cleared only after a successful serve, so a failed
-        flush leaves every buffered request intact for retry.
+        Under ``"global"`` the buffer is cleared only after a successful
+        serve, so a failed flush leaves every buffered request intact for
+        retry.  Under an async policy this is a **barrier** (see
+        :meth:`drain`).
 
         Returns:
           ``{table name: (batch, dim) reduction}`` per table with results;
-          ``{}`` when nothing is buffered.  Row order within a table is
-          submission order.
+          ``{}`` when nothing is buffered or in flight.  Row order within
+          a table is submission order.
         """
-        with self._lock:
+        if self.scheduler is not None:
+            return self.drain()
+        with self._engine_lock:
             if self._buffered == 0:
                 return {}
             out = self.serve({n: q for n, q in self._buffer.items() if q})
@@ -380,14 +743,486 @@ class ShardedEmbeddingServer:
             self._buffered = 0
             return out
 
+    def _ingest(self, table: str, seq: int, query) -> None:
+        """Routes one stamped query into the engine — the entry point
+        shared by the inline async submit path and the driver's loop."""
+        self.scheduler.push(table, seq, query)
+        self._maybe_flush()
+
+    # ------------------------------------------------- async flush engine --
+
+    def _maybe_flush(self) -> None:
+        """Dispatches every home the policy says is due."""
+        for home in self.scheduler.due_homes():
+            self._flush_home(home)
+
+    def _flush_home(self, home, *, forced: bool = False) -> None:
+        """Compiles and dispatches one home's pending batch (no block).
+
+        The dispatch goes through the self-healing loop
+        (:meth:`_heal_dispatch`); only an error the policy does not
+        absorb (the legacy contract) requeues the whole batch in
+        submission order — with its deadline clock intact — before
+        re-raising.  ``forced`` marks barrier flushes, which do not count
+        as deadline firings.
+        """
+        if not forced and self.scheduler.due_reason(home) == "deadline":
+            self.stats.deadline_flushes += 1
+        first_tick = self.scheduler.first_tick(home)
+        first_wall = self.scheduler.first_wall(home)
+        entries, participants = self.scheduler.take(home)
+        if not entries:
+            return
+        try:
+            admitted = self._heal_dispatch(home, entries, participants)
+        except Exception:
+            self.scheduler.requeue(home, entries, first_tick=first_tick,
+                                   first_wall=first_wall)
+            raise
+        # admission is OUTSIDE the requeue guard: a retire failure while
+        # trimming the pipeline must not requeue a batch that is already
+        # in flight (it would be served twice)
+        for entry in admitted:
+            self._admit(home, entry)
+
+    def _heal_dispatch(self, home, entries, participants) -> List[_InFlight]:
+        """Self-healing dispatch of one batch (DESIGN.md §8).
+
+        Up to ``max_retries`` in-place re-dispatches with jittered
+        exponential backoff; a batch that still fails and holds > 1
+        queries **bisects** (both halves heal independently); a single
+        query that still fails is **quarantined** with its error in the
+        ledger and dropped.  Under the legacy policy the terminal error
+        re-raises instead and the caller requeues.  Returns the
+        dispatched entries for the caller to admit.
+        """
+        policy = self.retry
+        ledger = self.stats.ledger
+        t_first = None
+        last: Optional[Exception] = None
+        for attempt in range(policy.max_retries + 1):
+            try:
+                entry = self._compile_and_dispatch(entries, participants)
+            except KernelError:
+                raise  # the build or the card failed, not this batch
+            except Exception as e:
+                last = e
+                if t_first is None:
+                    t_first = time.perf_counter()
+                if attempt < policy.max_retries:
+                    pause = policy.backoff_s(attempt, self._retry_rng)
+                    ledger.retries += 1
+                    ledger.backoff_s += pause
+                    if pause > 0:
+                        time.sleep(pause)
+                continue
+            if t_first is not None:
+                ledger.record_recovery(time.perf_counter() - t_first)
+            entry.home = home
+            entry.entries = entries
+            entry.participants = participants
+            return [entry]
+        if policy.quarantine and policy.bisect and len(entries) > 1:
+            ledger.bisections += 1
+            mid = len(entries) // 2
+            return (self._heal_dispatch(home, entries[:mid], participants)
+                    + self._heal_dispatch(home, entries[mid:], participants))
+        if policy.quarantine:
+            # terminal: drop the offender(s), keep the home serving
+            for table, seq, _query in entries:
+                prod, local = self._registry.decode(seq)
+                ledger.quarantine(table, local, last, producer=prod)
+                self._e2e_t0.pop((table, seq), None)
+            self.scheduler.record_quarantine(len(entries))
+            return []
+        raise last
+
+    def _admit(self, home, entry: _InFlight) -> None:
+        """Enqueues one dispatched flush and trims the pipeline."""
+        self._in_flight.append(entry)
+        # peak is sampled at APPEND time — the queue transiently holds
+        # max_in_flight + 1 entries before the retire loop trims it
+        self.stats.in_flight_peak = max(
+            self.stats.in_flight_peak, len(self._in_flight)
+        )
+        self.stats.record_flush_home(home)
+        while len(self._in_flight) > self.policy.max_in_flight:
+            self._retire_oldest()
+
+    def _device_busy(self) -> bool:
+        """Whether any in-flight flush is still running on the card.
+
+        Feeds ``hidden_compile_s``, whose contract is a conservative
+        LOWER bound on overlapped compile time — so an entry with no
+        event counts as idle, never as busy.
+        """
+        return any(not self._entry_ready(e) for e in self._in_flight)
+
+    def _compile_and_dispatch(
+        self,
+        entries: List[tuple],
+        participants: List[int] | None,
+    ) -> _InFlight:
+        """Host-compiles a batch and dispatches its kernels, non-blocking.
+
+        The host compile runs while earlier flushes may still run on the
+        card; ``record_compile(hidden=...)`` samples that overlap at
+        compile END (a conservative lower bound).  The schedule's copy to
+        the card is pinned and non-blocking, so nothing here waits for the
+        card; the flush's event is recorded after its last kernel and
+        waited on only at hand-off (:meth:`_retire_oldest`).
+
+        Mutates no engine state besides stats — a raise leaves the
+        pipeline as it was (the caller retries or requeues).
+        """
+        t0 = time.perf_counter()
+        by_table: Dict[str, Tuple[List[int], List[list]]] = {}
+        for table, seq, query in entries:
+            seqs, qs = by_table.setdefault(table, ([], []))
+            seqs.append(seq)
+            qs.append(query)
+        served = [n for n in self.names if n in by_table]
+        with self._on_stream():
+            sbq, spans = self._compile_batch(
+                served, {n: by_table[n][1] for n in served},
+                participants=participants,
+            )
+            self.stats.record_compile(
+                time.perf_counter() - t0, hidden=self._device_busy()
+            )
+            outs = crossbar_reduce_tables(
+                self.shard_images, sbq, spans,
+                combine_chunks=self.combine_chunks,
+                dynamic_switch=self.dynamic_switch,
+            )
+            event = self._record_event()
+        return _InFlight(
+            outs=outs, sbq=sbq, served=served,
+            seqs={n: np.asarray(by_table[n][0], dtype=np.int64)
+                  for n in served},
+            t0=t0, n_queries=sum(len(by_table[n][1]) for n in served),
+            event=event, t_dispatch=time.perf_counter(),
+        )
+
+    def _retire_oldest(self) -> None:
+        """Retires the oldest in-flight flush and stashes its rows.
+
+        A watchdog timeout degrades the flush to the host path on a CPU
+        server; on the card it requeues the flush's batch at its home and
+        re-raises (the host never serves rows the card was asked for).  A
+        retire-time device fault re-enters the healing loop under the
+        default policy, or requeues + re-raises under the legacy one.
+        """
+        e = self._in_flight.popleft()
+        try:
+            outs = self._wait_outputs(e)
+        except FlushTimeout:
+            if self._host_tables is None:
+                self.stats.ledger.timed_out_flushes += 1
+                if e.entries is not None:
+                    self.scheduler.requeue(e.home, e.entries)
+                raise
+            self._degrade(e)
+            return
+        except Exception:
+            if self.retry.quarantine and e.entries is not None:
+                # late device fault: the outputs are lost but the raw
+                # batch is not — heal it like a dispatch-time failure
+                self.stats.ledger.retries += 1
+                try:
+                    healed = self._heal_dispatch(
+                        e.home, e.entries, e.participants
+                    )
+                except KernelError:
+                    self.scheduler.requeue(e.home, e.entries)
+                    raise
+                for entry in healed:
+                    self._admit(e.home, entry)
+                return
+            if e.entries is not None:
+                self.scheduler.requeue(e.home, e.entries)
+            raise
+        self.stats.record(
+            e.sbq, self.dim, time.perf_counter() - e.t0, e.n_queries
+        )
+        for name, out in zip(e.served, outs):
+            self._record_completed(name, e.seqs[name], out)
+
+    def _record_completed(
+        self, table: str, seqs: np.ndarray, rows: torch.Tensor
+    ) -> None:
+        """Stashes one flush's rows (on the device) for :meth:`drain` and
+        samples e2e latency, under the results lock."""
+        now = time.perf_counter()
+        for s in seqs:
+            t0 = self._e2e_t0.pop((table, int(s)), None)
+            if t0 is not None:
+                self.stats.e2e_wall.append(now - t0)
+        with self._results_lock:
+            self._completed[table].append((seqs, rows))
+
+    def _wait_outputs(self, e: _InFlight) -> List[torch.Tensor]:
+        """Waits for one flush's event, bounded by the watchdog.
+
+        Without a watchdog this is ``event.synchronize()``.  With one,
+        the event is polled and :class:`~repro_torch.serve.faults.
+        FlushTimeout` raises once ``watchdog_s`` has elapsed since the
+        flush's kernel DISPATCH.
+        """
+        wd = self.retry.watchdog_s
+        if wd is None:
+            if e.event is not None:
+                e.event.synchronize()
+            return e.outs
+        while not self._entry_ready(e):
+            waited = time.perf_counter() - e.t_dispatch
+            if waited >= wd:
+                raise FlushTimeout(
+                    f"flush not ready {waited:.3f}s after dispatch "
+                    f"(watchdog {wd}s)"
+                )
+            time.sleep(self.retry.watchdog_poll_s)
+        return e.outs
+
+    def _degrade(self, e: _InFlight) -> None:
+        """Serves one timed-out flush via the host gather+sum path (CPU
+        servers only).
+
+        The timed-out outputs are abandoned and every query of the flush
+        is recomputed over the host copy of its logical table (distinct
+        rows summed, empty bags zero), cast to the table's dtype, so
+        ``drain()`` still returns every row.  Recorded as a degraded +
+        timed-out flush in the ledger.
+        """
+        ledger = self.stats.ledger
+        ledger.timed_out_flushes += 1
+        ledger.degraded_flushes += 1
+        if e.entries is None:  # no raw batch — nothing to recompute from
+            raise FlushTimeout(
+                "timed-out flush carries no raw batch to degrade with"
+            )
+        rows_of: Dict[str, Tuple[List[int], List[np.ndarray]]] = {}
+        for table, seq, query in e.entries:
+            ids = np.unique(np.asarray(list(query), dtype=np.int64))
+            tab = self._host_tables[table]
+            row = (tab[ids].sum(axis=0) if ids.size
+                   else np.zeros(self.dim, dtype=tab.dtype))
+            seqs, rows = rows_of.setdefault(table, ([], []))
+            seqs.append(seq)
+            rows.append(row.astype(tab.dtype, copy=False))
+        for table, (seqs, rows) in rows_of.items():
+            dev_rows = torch.from_numpy(np.stack(rows)).to(
+                device=self.device, dtype=self.dtype
+            )
+            self._record_completed(
+                table, np.asarray(seqs, dtype=np.int64), dev_rows
+            )
+        self.stats.record(
+            e.sbq, self.dim, time.perf_counter() - e.t0, e.n_queries
+        )
+
+    def _barrier(self) -> None:
+        """Flush-everything + drain of the pipeline.
+
+        Pending queries compile under the plan they were routed against
+        and every dispatched flush retires.  With the thread driver
+        running, a caller on any other thread posts a barrier token onto
+        the hand-off queue and joins the driver at it: the driver first
+        drains every earlier hand-off item (FIFO), then runs this barrier
+        inline.
+        """
+        driver = self._driver
+        if (driver is not None
+                and threading.current_thread() is not driver):
+            handoff = self._handoff
+            if handoff is not None:
+                done = threading.Event()
+                handoff.put(("barrier", done))
+                # never wait forever on a driver that died or was
+                # closed under us — poll its liveness while waiting
+                while not done.wait(0.1):
+                    if self._driver is not driver or not driver.is_alive():
+                        break
+                self._raise_driver_error()
+                return
+        for home in self.scheduler.homes_with_pending():
+            self._flush_home(home, forced=True)
+        while self._in_flight:
+            self._retire_oldest()
+        self.stats.barrier_flushes += 1
+
+    # ------------------------------------------------------ thread driver --
+
+    def _start_driver(self) -> None:
+        self._handoff = queue.Queue(maxsize=self.policy.handoff_depth)
+        self._driver_stop = threading.Event()
+        self._driver = threading.Thread(
+            target=self._driver_loop, name="recross-flush-driver", daemon=True
+        )
+        self._driver.start()
+
+    def _driver_loop(self) -> None:
+        """Dispatch/retire loop of the thread driver (DESIGN.md §7.2).
+
+        Runs on the server's device and stream throughout.  Pops
+        hand-off items FIFO: a query item routes + maybe-flushes, a
+        barrier token runs :meth:`_barrier` inline and wakes its waiter.
+        While the queue is idle, in-flight flushes whose events completed
+        retire opportunistically, and a wall deadline gets its chance to
+        fire.  A failure is stashed for :meth:`_raise_driver_error` to
+        surface on the caller's thread.
+        """
+        with self._on_stream():
+            while not self._driver_stop.is_set():
+                try:
+                    item = self._handoff.get(timeout=0.005)
+                except queue.Empty:
+                    try:
+                        self._retire_ready()
+                        if self.policy.deadline_s is not None:
+                            self._maybe_flush()
+                    except Exception as e:  # device fault surfacing at retire
+                        self._stash_driver_error(e)
+                    continue
+                if item[0] == "barrier":
+                    done = item[1]
+                    try:
+                        self._barrier()
+                    except Exception as e:
+                        self._stash_driver_error(e)
+                    finally:
+                        # task_done BEFORE waking the waiter: the seq-reset
+                        # guard reads unfinished_tasks right after a drain's
+                        # barrier returns, and this token must not count
+                        self._handoff.task_done()
+                        done.set()
+                    continue
+                _, table, seq, query_list = item
+                try:
+                    self._ingest(table, seq, query_list)
+                except Exception as e:
+                    # the batch is already requeued; surface the failure
+                    # at the caller's next submit()/drain()
+                    self._stash_driver_error(e)
+                finally:
+                    # a popped-but-unprocessed item is invisible to both
+                    # empty() and the scheduler — unfinished_tasks is the
+                    # counter that still sees it (seq-reset guard)
+                    self._handoff.task_done()
+
+    def _retire_ready(self) -> None:
+        """Retires in-flight flushes whose events completed, oldest
+        first; with a watchdog, a hung HEAD entry past its deadline is
+        retired here (taking the degrade path) while the driver idles."""
+        while self._in_flight and self._entry_ready(self._in_flight[0]):
+            self._retire_oldest()
+        wd = self.retry.watchdog_s
+        if (wd is not None and self._in_flight
+                and time.perf_counter() - self._in_flight[0].t_dispatch >= wd):
+            self._retire_oldest()
+
+    @staticmethod
+    def _entry_ready(e: _InFlight) -> bool:
+        # no event: CPU tensors (already computed) or a test stub
+        return e.event is None or bool(e.event.query())
+
+    def _stash_driver_error(self, e: BaseException) -> None:
+        """Stashes one driver failure for the caller's thread, bounded:
+        later ones queue behind the first (up to
+        :data:`_MAX_STASHED_ERRORS`), overflow is counted in the ledger."""
+        if len(self._driver_errors) < _MAX_STASHED_ERRORS:
+            self._driver_errors.append(e)
+        else:
+            self._suppressed_errors += 1
+            self.stats.ledger.driver_errors_suppressed += 1
+
+    def _raise_driver_error(self) -> None:
+        """Re-raises the OLDEST failure stashed by the driver thread,
+        its message carrying the count of further failures stashed (and
+        suppressed)."""
+        if not self._driver_errors:
+            return
+        err = self._driver_errors.popleft()
+        more = len(self._driver_errors) + self._suppressed_errors
+        if more and err.args and isinstance(err.args[0], str):
+            suppressed = (
+                f", {self._suppressed_errors} suppressed past the stash "
+                f"bound" if self._suppressed_errors else ""
+            )
+            err.args = (
+                f"{err.args[0]} [+{more} more driver failure(s) "
+                f"stashed{suppressed}]",
+            ) + err.args[1:]
+        raise err
+
+    #: driver join bound at close(); a driver stuck in un-watchdogged
+    #: device work is abandoned (daemon thread) rather than wedging the
+    #: caller, and the leak is recorded in the ledger's lost-work summary
+    _CLOSE_JOIN_S = 30.0
+
     def close(self) -> None:
-        """Closes the front door: later :meth:`submit` calls raise.
-        Buffered queries not yet flushed are counted in the stats'
-        ``unserved_at_close``.  Idempotent."""
-        with self._lock:
-            if not self._closed:
-                self._closed = True
-                self.stats.unserved_at_close = self._buffered
+        """Stops the thread driver (if running) and closes the front
+        door: any later :meth:`submit` — including one racing this call
+        on another thread — gets a clean ``RuntimeError``.  Hand-off
+        items the driver had not yet popped are pushed back into the
+        scheduler, so no submitted query is dropped — a later
+        :meth:`drain` serves them inline (the driver does not restart).
+
+        Idempotent and bounded: the driver join never hangs past
+        :data:`_CLOSE_JOIN_S`, and a producer blocked in a full hand-off
+        ``put()`` is unblocked by the push-back loop.  Work still
+        unserved at close is summarized into the ledger's ``lost_work``.
+        """
+        with self._stamp_lock:
+            already = self._closed
+            self._closed = True
+        if already:
+            return
+        leaked = False
+        if self._driver is not None:
+            self._driver_stop.set()
+            self._driver.join(timeout=self._CLOSE_JOIN_S)
+            leaked = self._driver.is_alive()
+            self._driver = None
+        pushed_back = 0
+        if self._handoff is not None:
+            # drain until no producer is still inside put(): every get
+            # below frees a slot, so a submitter blocked on the full
+            # queue completes its put and exits via _pending_submits
+            while True:
+                try:
+                    item = self._handoff.get_nowait()
+                except queue.Empty:
+                    with self._stamp_lock:
+                        if (self._pending_submits == 0
+                                and self._handoff.empty()):
+                            break
+                    time.sleep(0.001)
+                    continue
+                if item[0] == "barrier":
+                    # a concurrent drain()'s token: wake the waiter (its
+                    # barrier re-runs inline once the driver is gone)
+                    item[1].set()
+                else:
+                    _, table, seq, query_list = item
+                    self.scheduler.push(table, seq, query_list)
+                    pushed_back += 1
+            self._handoff = None
+        if self.scheduler is not None:
+            requeued = self.scheduler.pending_total()
+        else:
+            with self._engine_lock:
+                requeued = self._buffered
+        unserved = {
+            "requeued": requeued,
+            "handoff_pushed_back": pushed_back,
+            "in_flight": len(self._in_flight),
+            "host_pending": 0,
+            "stashed_errors": len(self._driver_errors),
+            "driver_leaked": int(leaked),
+        }
+        if any(unserved.values()):
+            self.stats.ledger.lost_work = unserved
 
     def __enter__(self) -> "ShardedEmbeddingServer":
         return self
@@ -395,23 +1230,148 @@ class ShardedEmbeddingServer:
     def __exit__(self, *exc) -> None:
         self.close()
 
+    def drain(self, producer=None) -> Dict[str, torch.Tensor]:
+        """Barrier + result hand-off for async policies.
+
+        Flushes every pending home, retires the whole in-flight queue
+        and returns everything served since the previous hand-off.
+        Under the thread driver this joins the driver at a barrier
+        token; a failure stashed by the driver surfaces here.
+
+        With ``producer=None`` (a FULL drain) every completed row is
+        returned, merged per table in the deterministic ``(local_seq,
+        producer_id)`` order (DESIGN.md §10).  With ``producer=`` a
+        label, only that producer's rows return (in ITS submission
+        order); every other stream's rows stay stashed for its own drain.
+
+        Returns:
+          ``{table: (n_queries, dim)}`` tensors on the server's device,
+          merged on its stream; ``{}`` for tables with no completed work
+          (for this producer).
+
+        Raises:
+          ValueError: ``producer=`` under the ``"global"`` policy.
+        """
+        if self.scheduler is None:
+            if producer is not None:
+                raise ValueError(
+                    "drain(producer=...) needs an async flush policy"
+                )
+            return self.flush()
+        self._raise_driver_error()
+        if self._driver is not None:
+            self._barrier()
+        else:
+            # inline engine: serialize against concurrent submits
+            with self._engine_lock:
+                self._barrier()
+        out: Dict[str, torch.Tensor] = {}
+        with self._results_lock, self._on_stream():
+            if producer is None:
+                for name in self.names:
+                    chunks = self._completed[name]
+                    if not chunks:
+                        continue
+                    seqs = np.concatenate([c[0] for c in chunks])
+                    rows = torch.cat([c[1] for c in chunks])
+                    # packed ids sort as (local_seq, producer_id): the
+                    # cross-producer merge is deterministic, and within
+                    # one producer it is that producer's FIFO
+                    out[name] = _take_rows(rows, np.argsort(seqs))
+                self._completed = {n: [] for n in self.names}
+            else:
+                pid = self._registry.pid(producer)
+                stride = self._registry.stride
+                for name in self.names:
+                    chunks = self._completed[name]
+                    if not chunks or pid is None:
+                        continue
+                    seqs = np.concatenate([c[0] for c in chunks])
+                    rows = torch.cat([c[1] for c in chunks])
+                    mine = np.nonzero((seqs % stride) == pid)[0]
+                    if mine.size:
+                        out[name] = _take_rows(
+                            rows, mine[np.argsort(seqs[mine])]
+                        )
+                    rest = np.nonzero((seqs % stride) != pid)[0]
+                    self._completed[name] = (
+                        [(seqs[rest], _take_rows(rows, rest))]
+                        if rest.size else []
+                    )
+        # sequence ids restart ONLY at full quiescence — nothing pending,
+        # in flight, stashed for another producer's drain, or still
+        # inside a submit()'s stamped-but-undelivered window (the
+        # hand-off's unfinished_tasks counts popped-but-unprocessed items
+        # too).  Per-producer drains never reset.
+        if producer is None:
+            with self._results_lock:
+                with self._stamp_lock:
+                    handoff = self._handoff
+                    busy = (
+                        self._pending_submits > 0
+                        or (handoff is not None
+                            and handoff.unfinished_tasks > 0)
+                    )
+                    if (not busy
+                            and self.scheduler.pending_total() == 0
+                            and not self._in_flight
+                            and not any(self._completed.values())):
+                        self._registry.reset_seqs()
+        return out
+
     # ------------------------------------------------------------- report --
+
+    def _snapshot_closed(self) -> bool:
+        """Reads the closed flag under the stamp lock that guards it."""
+        with self._stamp_lock:
+            return self._closed
 
     def report(self) -> Dict[str, object]:
         """Serving + placement accounting.
 
         Returns a dict with ``tables`` (sorted names), ``plan``
         (:meth:`ShardPlan.memory_summary`), ``serve``
-        (:meth:`ShardedServeStats.summary`), ``mode`` (``"emulated"``),
-        ``device``, ``image_bytes`` (the shard image stack on the device)
-        and ``dispatch_cache`` (the reference's schema, all zero).
+        (:meth:`ShardedServeStats.summary`, the error ledger inside
+        ``serve["faults"]``), ``mode`` (``"emulated"``), ``retry`` (the
+        live :class:`RetryPolicy` knobs), ``dispatch_cache`` (the
+        reference's schema, all zero), ``device``, ``image_bytes`` (the
+        shard image stack on the device) and, under an async policy,
+        ``scheduler`` (policy knobs, pipeline depth, pending/fill and
+        producers).
         """
-        return {
+        rep: Dict[str, object] = {
             "tables": self.names,
             "plan": self.plan.memory_summary(),
             "serve": self.stats.summary(),
             "mode": "emulated",
+            "retry": dataclasses.asdict(self.retry),
+            "dispatch_cache": dispatch_cache_stats(),
             "device": str(self.device),
             "image_bytes": self.shard_images.numel() * self.shard_images.element_size(),
-            "dispatch_cache": dispatch_cache_stats(),
         }
+        if self.scheduler is not None:
+            rep["scheduler"] = {
+                "policy": self.policy.kind,
+                "batch_size": self.policy.batch_size,
+                "union_budget": self.policy.union_budget,
+                "deadline": self.policy.deadline,
+                "deadline_s": self.policy.deadline_s,
+                "max_in_flight": self.policy.max_in_flight,
+                "in_flight": len(self._in_flight),
+                "threaded": self.policy.threaded,
+                "handoff_depth": self.policy.handoff_depth,
+                "handoff_pending": (
+                    self._handoff.qsize() if self._handoff is not None else 0
+                ),
+                "closed": self._snapshot_closed(),
+                **self.scheduler.state(),
+                "producers": self._registry.state(),
+            }
+        return rep
+
+
+def _take_rows(rows: torch.Tensor, index: np.ndarray) -> torch.Tensor:
+    """``rows[index]`` with a host index, gathered on ``rows``' device."""
+    return rows.index_select(
+        0, torch.as_tensor(index, dtype=torch.int64, device=rows.device)
+    )

@@ -46,7 +46,9 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
                 "repro_torch.models.rope", "repro_torch.models.attention",
                 "repro_torch.models.transformer", "repro_torch.kernels.decode_attention",
                 "repro_torch.serve.kvcache", "repro_torch.serve.decode",
-                "repro_torch.serve.batching", "repro_torch.launch.serve"):
+                "repro_torch.serve.batching", "repro_torch.launch.serve",
+                "repro_torch.serve.scheduler", "repro_torch.serve.producers",
+                "repro_torch.serve.faults"):
         assert mod in res["modules"]
 
 

@@ -108,18 +108,31 @@ def test_bf16_tables_keep_their_dtype():
             np.testing.assert_array_equal(fb[name].float().numpy(), ff[name].numpy())
 
 
-@pytest.mark.parametrize("kwargs,match", [
-    ({"mesh": object()}, "torch.distributed"),
-    ({"flush_policy": "per-shard"}, "scheduler"),
-    ({"threaded": True}, "scheduler"),
-    ({"replan": object()}, "drift/replan"),
-    ({"tiers": object()}, "tiers and faults"),
-    ({"faults": object()}, "tiers and faults"),
+@pytest.mark.parametrize("kwargs,error,match", [
+    ({"mesh": object()}, NotImplementedError, "torch.distributed"),
+    # the async policies are ported: this case serves
+    ({"flush_policy": "per-shard"}, None, None),
+    # the reference's rule: the thread driver needs an async kind
+    ({"threaded": True}, ValueError, "async kind"),
+    ({"replan": object()}, NotImplementedError, "drift/replan"),
+    ({"tiers": object()}, NotImplementedError, "tiers and faults"),
+    ({"faults": object()}, NotImplementedError, "tiers and faults"),
 ])
-def test_unported_modes_raise(kwargs, match):
-    tables, histories, _ = _setup(seed=1)
-    with pytest.raises(NotImplementedError, match=match):
-        TorchServer(tables_from_numpy(tables, "cpu"), histories, device="cpu", **kwargs)
+def test_unported_modes_raise(kwargs, error, match):
+    tables, histories, stream = _setup(seed=1)
+    if error is not None:
+        with pytest.raises(error, match=match):
+            TorchServer(tables_from_numpy(tables, "cpu"), histories, device="cpu", **kwargs)
+        return
+    port = TorchServer(tables_from_numpy(tables, "cpu"), histories, q_block=4,
+                       group_size=16, batch_size=12, device="cpu", **kwargs)
+    for name, q in stream:
+        assert port.submit(name, q) == {}
+    out = port.drain()
+    for name in ("a", "b"):
+        qs = [q for n, q in stream if n == name]
+        want = np.stack([tables[name][np.unique(q)].sum(axis=0) for q in qs])
+        np.testing.assert_array_equal(out[name].numpy(), want)
 
 
 def test_submit_validation_and_close():
@@ -134,7 +147,7 @@ def test_submit_validation_and_close():
     port.close()
     with pytest.raises(RuntimeError):
         port.submit("a", [3])
-    assert port.report()["serve"]["unserved_at_close"] == 1
+    assert port.report()["serve"]["faults"]["lost_work"]["requeued"] == 1
 
 
 def test_launcher_cpu_smoke_subprocess():
