@@ -36,7 +36,18 @@ Phases, in order; any failure propagates and the process exits non-zero:
    ``torch.cuda._sleep`` returning with its event pending; then
    integer-valued tables served under global, per-shard, deadline,
    owner-set and owner-set threaded with two producers, every drain
-   bit-identical to gather+sum;
+   bit-identical to gather+sum; serving-replan: the serving-async
+   configuration with ``replan=`` (threshold 0.2, half-life 4, 64
+   queries, 8 slack tiles) over 1,024 queries a table whose row ids
+   rotate through a fixed permutation from half-way on; at least one
+   patch must copy tiles, rows are held against the serving phase's and
+   gather+sum, every patched and 4,096 sampled image slots against the
+   host master image bit for bit, one dispatch plus its drift
+   observation must return with its event pending; the patch's host
+   gather, copy and scatter are timed beside a pinned copy of the same
+   bytes; the integer-valued stream, drifted, under ``replan=`` in the
+   same five setups, each bit-identical to the port's CPU server with
+   the same replans and patched tiles;
 5. flat op: ``ops.crossbar_reduce`` on one table's compiled queries
    against ``reduce_dense_oracle`` on the card;
 6. embedding-bag parity: the embedding-bag kernel against its plain
@@ -78,6 +89,7 @@ prints no result.  It imports nothing of ``jax`` or ``repro``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -114,6 +126,12 @@ Q_BLOCK = 8
 BATCH_SIZE = 256
 HISTORY = 100_000
 STREAM_PER_TABLE = 512                 # 8 x 512 = 4,096 served queries
+REPLAN_PER_TABLE = 1_024               # serving-replan: 8 x 1,024 queries, the first 512 the same
+DRIFT_SEED = 7                         # serving-replan: the hot-set rotation's permutation
+# serving-replan: launch/serve_sharded.py's --drift defaults
+REPLAN = {"threshold": 0.2, "half_life": 4.0, "min_queries": 64, "slack_tiles": 8}
+BITS_EQ1_BATCH = 512                   # replan bits: Eq. 1 promotes at 4 shards
+SAMPLE_SLOTS = 4_096                   # serving-replan: unpatched image slots held to the master
 SAMPLE_ROWS = 256
 ASYNC_SHARDS = 4                       # serving-async: shards emulated on the one card
 BITS_ROWS = 4_096                      # serving-async: integer-valued tables
@@ -346,7 +364,7 @@ def phase_serving(torch, np, timer):
     # probe one table's plan build; cut the table count (never a width)
     # if all eight would not fit the plan budget
     t0 = time.perf_counter()
-    trace0 = scale_trace(ROWS, HISTORY + STREAM_PER_TABLE, 32.0, seed=0)
+    trace0 = scale_trace(ROWS, HISTORY + REPLAN_PER_TABLE, 32.0, seed=0)
     correlation_aware_grouping(build_cooccurrence(trace0[:HISTORY], ROWS), GROUP_SIZE)
     per_table_s = time.perf_counter() - t0
     num_tables = NUM_TABLES
@@ -358,14 +376,17 @@ def phase_serving(torch, np, timer):
 
     rng = np.random.default_rng(1234)
     names = [f"t{t}" for t in range(num_tables)]
-    host_tables, histories, streams = {}, {}, {}
+    host_tables, histories, streams, long_streams = {}, {}, {}, {}
     for t, name in enumerate(names):
         table = np.zeros((ROWS, PADDED_DIM), dtype=np.float32)
         table[:, :EMBED_DIM] = rng.standard_normal((ROWS, EMBED_DIM), dtype=np.float32)
         host_tables[name] = table
         trace = trace0 if t == 0 else scale_trace(
-            ROWS, HISTORY + STREAM_PER_TABLE, 32.0, seed=t)
-        histories[name], streams[name] = trace[:HISTORY], trace[HISTORY:]
+            ROWS, HISTORY + REPLAN_PER_TABLE, 32.0, seed=t)
+        # the trace's queries are drawn in order, so its first
+        # HISTORY + 512 are those of a trace of that length
+        histories[name], long_streams[name] = trace[:HISTORY], trace[HISTORY:]
+        streams[name] = long_streams[name][:STREAM_PER_TABLE]
     del trace0
     tables = tables_from_numpy(host_tables, DEVICE)
 
@@ -448,7 +469,8 @@ def phase_serving(torch, np, timer):
     half = -(-sbq.num_blocks // 2)
     real = parity(torch, timer, "serving-flush/q8", server.shard_images[0],
                   sbq.tile_ids[0, :half].contiguous(), sbq.bitmaps[0, :half].contiguous())
-    return stats, real, server, tables, streams, histories, {"order": order, "out": out}
+    return stats, real, server, tables, streams, histories, {
+        "order": order, "out": out, "long_streams": long_streams}
 
 
 def _submit_from_producers(server, slices) -> None:
@@ -550,16 +572,7 @@ def phase_serving_async(torch, np, tables, histories, streams, served) -> dict:
 
     # the merge order (local_seq, pid) implies, as positions in each
     # table's serving-phase rows
-    local = {}
-    keyed = {n: [] for n in names}
-    seen = {n: 0 for n in names}
-    for i, (name, _) in enumerate(order):
-        pid = i % 2
-        seq = local.get((pid, name), 0)
-        local[(pid, name)] = seq + 1
-        keyed[name].append((seq, pid, seen[name]))
-        seen[name] += 1
-    merged = {n: [k for _, _, k in sorted(keyed[n])] for n in names}
+    merged = merge_positions(order, names)
     err = 0.0
     for n in names:
         got = out.get(n)
@@ -606,11 +619,13 @@ def phase_serving_async(torch, np, tables, histories, streams, served) -> dict:
     return stats
 
 
-def busy_stream_dispatch(torch, server, dispatch, order, rows_global) -> dict:
+def busy_stream_dispatch(torch, server, dispatch, order, rows_global, *,
+                         observe=False) -> dict:
     """One flush dispatched while the server's stream is still busy with
     ``BUSY_CYCLES`` of ``torch.cuda._sleep``: the dispatch (host compile,
-    the pinned copy of the schedule, the kernels) must return while the
-    stream still runs, its event pending; its rows must equal the global
+    the pinned copy of the schedule, the kernels) and, with ``observe``,
+    the drift observation that follows it must return while the stream
+    still runs, its event pending; its rows must equal the global
     phase's.  A host wait anywhere in the dispatch fails this."""
     batch = order[:BATCH_SIZE]
     entries = [(name, i, list(q)) for i, (name, q) in enumerate(batch)]
@@ -618,6 +633,8 @@ def busy_stream_dispatch(torch, server, dispatch, order, rows_global) -> dict:
         torch.cuda._sleep(BUSY_CYCLES)
         t0 = time.perf_counter()
         entry = dispatch(entries, None)
+        if observe:
+            server._observe_and_stage(entry.host_cq, entry.n_queries)
         returned_ms = (time.perf_counter() - t0) * 1e3
         pending = not entry.event.query()
         entry.event.synchronize()
@@ -631,73 +648,432 @@ def busy_stream_dispatch(torch, server, dispatch, order, rows_global) -> dict:
         err = max(err, float((out - rows_global[name][: out.shape[0]]).abs().max().item()))
     if err > TOL["float32"]:
         raise AssertionError(f"busy-stream dispatch rows disagree: {err}")
-    return {"busy_cycles": BUSY_CYCLES, "returned_ms": returned_ms,
+    return {"busy_cycles": BUSY_CYCLES, "observed": observe, "returned_ms": returned_ms,
             "event_pending_at_return": pending, "done_ms": done_ms, "max_abs_err": err}
+
+
+def merge_positions(order, names, producers=2) -> dict:
+    """For a stream submitted round-robin by ``producers`` threads and
+    drained whole: per table, the table's stream positions in the drain's
+    ``(local_seq, producer)`` merge order."""
+    local, keyed, seen = {}, {n: [] for n in names}, {n: 0 for n in names}
+    for i, (name, _) in enumerate(order):
+        pid = i % producers
+        seq = local.get((pid, name), 0)
+        local[(pid, name)] = seq + 1
+        keyed[name].append((seq, pid, seen[name]))
+        seen[name] += 1
+    return {n: [k for _, _, k in sorted(keyed[n])] for n in names}
+
+
+def drift_stream(np, order, rows, seed):
+    """``order`` with every row id of its second half rotated through one
+    fixed permutation — ``launch/serve_sharded.py --drift``'s hot-set
+    rotation, which the plan never saw."""
+    perm = np.random.default_rng(seed).permutation(rows)
+    cut = len(order) // 2
+    return order[:cut] + [(name, perm[np.asarray(q, dtype=np.int64)])
+                          for name, q in order[cut:]]
+
+
+def check_image_slots(torch, np, server, written, gen) -> dict:
+    """Every addressed slot a patch wrote, and ``SAMPLE_SLOTS`` other
+    addressed slots, must hold their tile of the host master image bit
+    for bit (compared on the card)."""
+    plan, images = server.plan, server.shard_images
+    cap = images.shape[1]
+    shard, tile = np.nonzero(plan.local_tile_of >= 0)
+    key = shard * cap + plan.local_tile_of[shard, tile].astype(np.int64)
+    by_key = np.argsort(key)
+    key, tile = key[by_key], tile[by_key]
+    written = np.unique(np.asarray(sorted(written), dtype=np.int64))
+    patched = written[np.isin(written, key)]
+    rest = np.setdiff1d(key, patched)
+    sample = gen.choice(rest, size=min(SAMPLE_SLOTS, rest.size), replace=False)
+    check = np.concatenate([patched, sample])
+    for c0 in range(0, check.size, 2_048):
+        ks = check[c0:c0 + 2_048]
+        t = tile[np.searchsorted(key, ks)]
+        got = images[torch.from_numpy(ks // cap).to(DEVICE), torch.from_numpy(ks % cap).to(DEVICE)]
+        want = torch.from_numpy(server._fused[t]).to(device=DEVICE, dtype=images.dtype)
+        if not torch.equal(got, want):
+            raise AssertionError("serving-replan: an image slot differs from its master tile")
+    return {"patched_slots_checked": int(patched.size), "sampled_slots_checked": int(sample.size)}
+
+
+def phase_serving_replan(torch, np, timer, tables, histories, served, async_stats) -> dict:
+    """Online replanning at dlrm-recross FULL width: the serving-async
+    configuration with ``replan=`` the launcher's ``--drift`` defaults,
+    over 1,024 queries a table whose row ids rotate through a fixed
+    permutation from half-way on.  At least one patch must copy tiles;
+    drained rows are held against the serving phase's and gather+sum, the
+    patched and sampled image slots against the host master image; one
+    dispatch plus its drift observation must return before a busy stream
+    finishes.  Times the patch's host gather, copy and scatter, and a
+    plain pinned copy of the same bytes."""
+    from repro_torch.core import reduce_dense_oracle
+    from repro_torch.kernels import sharded as sharded_mod
+    from repro_torch.kernels.crossbar_reduce import crossbar_reduce_cuda
+    from repro_torch.serve import ReplanConfig, ShardedEmbeddingServer
+    from repro_torch.serve import drift as drift_mod
+    from repro_torch.serve import sharded as server_mod
+
+    names = sorted(tables)
+    n_tab = len(names)
+    long_streams = served["long_streams"]
+    order = drift_stream(np, [(names[i % n_tab], long_streams[names[i % n_tab]][i // n_tab])
+                              for i in range(n_tab * REPLAN_PER_TABLE)], ROWS, DRIFT_SEED)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    server = ShardedEmbeddingServer(
+        tables, histories, num_shards=ASYNC_SHARDS, q_block=Q_BLOCK,
+        group_size=GROUP_SIZE, batch_size=BATCH_SIZE, flush_policy="owner-set",
+        owner_set_max=2, threaded=True, max_in_flight=2, device=DEVICE,
+        replan=ReplanConfig(**REPLAN),
+    )
+    plan_s = time.perf_counter() - t0
+    image_shape = list(server.shard_images.shape)
+    log(f"serving-replan: plan build {plan_s:.2f} s, image {tuple(image_shape)}, "
+        f"host master {server._fused.nbytes} B")
+
+    # the patch's host gather (host clock) and its device steps (CUDA
+    # events on the server's stream), through the functions
+    # patch_shard_images calls
+    timing = {"gather_s": [], "apply_s": [], "resize": [], "copy": [], "scatter": [],
+              "plan_apply_s": [], "rebuild_s": [], "digest_s": [], "loads_s": [],
+              "stage_s": []}
+    written = set()
+
+    def host_timed(key, fn):
+        def run(*args, **kw):
+            t = time.perf_counter()
+            out = fn(*args, **kw)
+            timing[key].append(time.perf_counter() - t)
+            return out
+        return run
+
+    stage = sharded_mod.stage_patch_tiles
+
+    def timed_stage(writes, *args, **kw):
+        t = time.perf_counter()
+        out = stage(writes, *args, **kw)
+        timing["gather_s"].append(time.perf_counter() - t)
+        written.update(s * 10**9 + slot for s, slot, _ in writes)
+        return out
+
+    def device_timed(key, fn):
+        def run(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            timing[key].append((start, end))
+            return out
+        return run
+
+    apply = server._apply_staged_patch
+
+    def timed_apply():
+        if server._staged is None:
+            return apply()
+        t = time.perf_counter()
+        apply()
+        timing["apply_s"].append(time.perf_counter() - t)
+
+    observe = server._observe_and_stage
+    obs_s = []
+
+    def timed_observe(host_cq, n_queries):
+        t = time.perf_counter()
+        observe(host_cq, n_queries)
+        obs_s.append(time.perf_counter() - t)
+
+    server._apply_staged_patch = timed_apply
+    server._observe_and_stage = timed_observe
+    # the observation's parts: the digest, the loads on a miss and the
+    # drift statistic with any patch computation; the apply's plan swap
+    # (rebases too) and the scheduler's rebuild
+    server._maybe_stage = host_timed("stage_s", server._maybe_stage)
+    server.scheduler.rebuild = host_timed("rebuild_s", server.scheduler.rebuild)
+    labels = ("p0", "p1")
+    for label in labels:
+        server.register_producer(label)
+    slices = {label: [order[i] for i in range(p, len(order), 2)]
+              for p, label in enumerate(labels)}
+    crossbar_reduce_cuda.launches = 0
+    patched_fns = (
+        mock.patch.object(sharded_mod, "stage_patch_tiles", timed_stage),
+        mock.patch.object(sharded_mod, "resize_shard_images",
+                          device_timed("resize", sharded_mod.resize_shard_images)),
+        mock.patch.object(sharded_mod, "upload_patch_tiles",
+                          device_timed("copy", sharded_mod.upload_patch_tiles)),
+        mock.patch.object(sharded_mod, "scatter_patch_tiles",
+                          device_timed("scatter", sharded_mod.scatter_patch_tiles)),
+        mock.patch.object(server_mod, "apply_plan_patch",
+                          host_timed("plan_apply_s", server_mod.apply_plan_patch)),
+        mock.patch.object(drift_mod, "fused_group_loads",
+                          host_timed("loads_s", drift_mod.fused_group_loads)),
+        mock.patch.object(drift_mod.LoadObservationCache, "_key", staticmethod(
+            host_timed("digest_s", drift_mod.LoadObservationCache._key))),
+    )
+    t0 = time.perf_counter()
+    try:
+        with contextlib.ExitStack() as stack:
+            for patched in patched_fns:
+                stack.enter_context(patched)
+            _submit_from_producers(server, slices)
+            out = server.drain()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = crossbar_reduce_cuda.launches
+        rep = server.report()
+        obs = list(obs_s)
+        written = {(k // 10**9) * server.shard_images.shape[1] + k % 10**9 for k in written}
+        slots = check_image_slots(torch, np, server, written, np.random.default_rng(13))
+        busy = busy_stream_dispatch(torch, server, server._compile_and_dispatch, order,
+                                    served["out"], observe=True)
+    finally:
+        server.close()
+        # the wrappers close cycles through the server; break them so its
+        # image is freed when this phase returns
+        del server._apply_staged_patch, server._observe_and_stage, server._maybe_stage
+        del server.scheduler.rebuild
+    s = rep["serve"]
+    if launches <= 0:
+        raise AssertionError("serving-replan ran no crossbar kernel launch")
+    if s["replans"] < 1 or s["patched_tiles"] <= 0:
+        raise AssertionError(f"serving-replan applied no patch that copies tiles: "
+                             f"{s['replans']} replans, {s['patched_tiles']} tiles")
+    if s["barrier_flushes"] < 1:
+        raise AssertionError("serving-replan passed no barrier")
+
+    # rows: in place (the drift-free first half equals the serving
+    # phase's rows) and sampled against gather+sum
+    merged = merge_positions(order, names)
+    per_table = {n: [q for t, q in order if t == n] for n in names}
+    rows_global = served["out"]
+    err_global = 0.0
+    for n in names:
+        got = out.get(n)
+        if got is None or got.shape != (len(merged[n]), PADDED_DIM) or not torch.isfinite(got).all():
+            raise AssertionError(f"serving-replan table {n}: bad output "
+                                 f"{None if got is None else tuple(got.shape)}")
+        pos = [j for j, k in enumerate(merged[n]) if k < STREAM_PER_TABLE]
+        want = rows_global[n][torch.tensor([merged[n][j] for j in pos], device=DEVICE)]
+        err_global = max(err_global, float((got[torch.tensor(pos, device=DEVICE)] - want)
+                                           .abs().max().item()))
+    if err_global > TOL["float32"]:
+        raise AssertionError(f"serving-replan rows disagree with the global phase's: {err_global}")
+    pick = np.random.default_rng(17).choice(len(order), size=SAMPLE_ROWS, replace=False)
+    flat = [(n, j) for n in names for j in range(len(merged[n]))]
+    oracle_err = 0.0
+    for i in pick.tolist():
+        n, j = flat[i]
+        want = reduce_dense_oracle(tables[n], [per_table[n][merged[n][j]]])[0]
+        oracle_err = max(oracle_err, float((out[n][j] - want).abs().max().item()))
+    if oracle_err > TOL["float32"]:
+        raise AssertionError(f"serving-replan rows disagree with gather+sum: {oracle_err}")
+
+    def total_ms(key):
+        return sum(a.elapsed_time(b) for a, b in timing[key])
+
+    tile_bytes = server._tile_bytes
+    moved = s["patched_tiles"] * tile_bytes
+    pinned = torch.empty(moved, dtype=torch.uint8, pin_memory=True)
+    copy_ms = timer.ms(lambda: pinned.to(DEVICE, non_blocking=True))
+    obs_arr = np.asarray(obs)
+    flush_p50 = s["flush_latency_s"]["p50"]
+    pct = {k: {p: s[k][p] for p in ("p50", "p99")}
+           for k in ("submit_latency_s", "e2e_latency_s", "flush_latency_s")}
+    stats = {
+        "tables": n_tab, "rows": ROWS, "dim": PADDED_DIM, "shards": ASYNC_SHARDS,
+        "policy": "owner-set", "owner_set_max": 2, "threaded": True, "producers": 2,
+        "replan": REPLAN, "queries_per_table": REPLAN_PER_TABLE, "drift_from": len(order) // 2,
+        "plan_build_s": plan_s, "image_shape_at_build": image_shape,
+        "image_shape_after": list(server.shard_images.shape),
+        "host_master_bytes": int(server._fused.nbytes),
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "queries": s["queries"], "wall_s": wall, "queries_per_s": s["queries"] / wall,
+        "async_queries_per_s": async_stats["queries_per_s"], **pct,
+        "async_submit_latency_s": async_stats["submit_latency_s"],
+        "async_e2e_latency_s": async_stats["e2e_latency_s"],
+        "batches": s["batches"], "barrier_flushes": s["barrier_flushes"],
+        "deadline_flushes": s["deadline_flushes"], "host_compile_s": s["host_compile_s"],
+        "replans": s["replans"], "rebases": s["rebases"], "patched_tiles": s["patched_tiles"],
+        "promoted_groups": s["promoted_groups"], "demoted_groups": s["demoted_groups"],
+        "patches_with_writes": len(timing["gather_s"]),
+        "patch_apply_s": timing["apply_s"], "patch_gather_s": timing["gather_s"],
+        "patch_resize_ms": total_ms("resize"), "patch_copy_ms": total_ms("copy"),
+        "patch_scatter_ms": total_ms("scatter"),
+        "patch_bytes": moved, "pinned_copy_same_bytes_ms": copy_ms,
+        "plan_apply_s": timing["plan_apply_s"], "scheduler_rebuild_s": timing["rebuild_s"],
+        "observations": int(obs_arr.size), "observe_s_total": float(obs_arr.sum()),
+        "observe_ms_mean": float(obs_arr.mean()) * 1e3,
+        "observe_ms_p50": float(np.percentile(obs_arr, 50)) * 1e3,
+        "observe_ms_p99": float(np.percentile(obs_arr, 99)) * 1e3,
+        "observe_share_of_flush_p50": float(np.percentile(obs_arr, 50)) / flush_p50
+        if flush_p50 else None,
+        "observe_share_of_host_compile": float(obs_arr.sum()) / s["host_compile_s"],
+        "observe_digest_s": sum(timing["digest_s"]), "observe_loads_s": sum(timing["loads_s"]),
+        "observe_stage_s": sum(timing["stage_s"]),
+        "load_obs_hits": s["tiers"]["load_obs_hits"],
+        "load_obs_misses": s["tiers"]["load_obs_misses"],
+        "drift_after": rep["replan"]["drift"], "slack_slots": rep["replan"]["slack_slots"],
+        "kernel_launches": launches, **slots, "busy_stream_dispatch": busy,
+        "max_abs_err_vs_global": err_global, "sampled_rows": SAMPLE_ROWS,
+        "sample_max_abs_err": oracle_err, "faults": s["faults"],
+    }
+    log("serving-replan", json.dumps(stats))
+    return stats
+
+
+def _submit_in_turns(server, slices) -> None:
+    """Each producer's ``[(table, query), ...]`` from its own thread, the
+    threads taking strict turns one query at a time: the hand-off order,
+    and with it every replan decision, is the same in every run."""
+    import threading
+
+    # round robin over the producers that still have queries
+    left = {label: len(v) for label, v in slices.items()}
+    schedule = []
+    while any(left.values()):
+        for label in slices:
+            if left[label]:
+                schedule.append(label)
+                left[label] -= 1
+    turn = {"i": 0}
+    cond = threading.Condition()
+    errors = []
+
+    def run(label):
+        try:
+            for name, q in slices[label]:
+                with cond:
+                    while turn["i"] < len(schedule) and schedule[turn["i"]] != label:
+                        cond.wait(timeout=60)
+                    server.submit(name, q, producer=label)
+                    turn["i"] += 1
+                    cond.notify_all()
+        except Exception as e:  # re-raised on the caller's thread below
+            errors.append(e)
+            with cond:
+                turn["i"] = len(schedule)
+                cond.notify_all()
+
+    threads = [threading.Thread(target=run, args=(label,), daemon=True) for label in slices]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+        if t.is_alive():
+            raise AssertionError("a producer did not finish")
+    if errors:
+        raise errors[0]
+
+
+BITS_SETUPS = (("global", "global", False), ("per-shard", "per-shard", False),
+               ("deadline", "deadline", False), ("owner-set", "owner-set", False),
+               ("owner-set/threaded/2p", "owner-set", True))
+
+
+def serve_bits(torch, server, names, stream, slices, threaded, submit) -> dict:
+    """One stream through ``server``: inline submits and the final
+    flush, or ``slices`` submitted by ``submit`` from producer threads
+    and one drain.  Returns ``{table: rows}``; closes the server."""
+    try:
+        if threaded:
+            for p in slices:
+                server.register_producer(p)
+            submit(server, slices)
+            return server.drain()
+        parts = {n: [] for n in names}
+        for t, q in stream:
+            for n, rows in server.submit(t, q).items():
+                parts[n].append(rows)
+        for n, rows in server.flush().items():
+            parts[n].append(rows)
+        return {n: torch.cat(parts[n]) for n in names}
+    finally:
+        server.close()
 
 
 def phase_async_bits(torch, np) -> dict:
     """Integer-valued tables on the card: one seeded stream served under
     global, per-shard, deadline and owner-set inline, and owner-set on the
     thread driver from two producers; every drain must hold the same bits
-    as the others and as gather+sum."""
+    as the others and as gather+sum.  Then the stream with its second
+    half's row ids rotated (``drift_stream``) under ``replan=`` in the same
+    five setups (the two producers taking strict turns): each must equal
+    the port's CPU server on the same configuration bit for bit, with the
+    same replans and patched tiles, and at least one patch that copies
+    tiles."""
     from repro_torch.convert import tables_from_numpy
     from repro_torch.core import reduce_dense_oracle
     from repro_torch.data import zipf_queries
     from repro_torch.kernels.crossbar_reduce import crossbar_reduce_cuda
-    from repro_torch.serve import ShardedEmbeddingServer
+    from repro_torch.serve import ReplanConfig, ShardedEmbeddingServer
 
     rng = np.random.default_rng(99)
     names = ("a", "b")
-    tables = tables_from_numpy({
-        n: rng.integers(-8, 9, size=(BITS_ROWS, PADDED_DIM)).astype(np.float32)
-        for n in names}, DEVICE)
+    host = {n: rng.integers(-8, 9, size=(BITS_ROWS, PADDED_DIM)).astype(np.float32)
+            for n in names}
+    tables, cpu_tables = tables_from_numpy(host, DEVICE), tables_from_numpy(host, "cpu")
     histories = {n: zipf_queries(BITS_ROWS, 2048, 12.0, seed=10 + i) for i, n in enumerate(names)}
-    stream = [("a" if i % 3 else "b", q)
-              for i, q in enumerate(zipf_queries(BITS_ROWS, BITS_QUERIES, 12.0, seed=20))]
-    per_table = {n: [q for t, q in stream if t == n] for n in names}
-    oracle = {n: reduce_dense_oracle(tables[n], per_table[n]) for n in names}
-    # the k-th query of a table goes to producer k % 2: the (local_seq,
-    # pid) merge then restores each table's submission order
-    slices, count = {"p0": [], "p1": []}, {n: 0 for n in names}
-    for t, q in stream:
-        slices[f"p{count[t] % 2}"].append((t, q))
-        count[t] += 1
+    base = [("a" if i % 3 else "b", q)
+            for i, q in enumerate(zipf_queries(BITS_ROWS, BITS_QUERIES, 12.0, seed=20))]
     runs = {}
     launches = 0
-    for label, policy, threaded in (("global", "global", False),
-                                    ("per-shard", "per-shard", False),
-                                    ("deadline", "deadline", False),
-                                    ("owner-set", "owner-set", False),
-                                    ("owner-set/threaded/2p", "owner-set", True)):
-        server = ShardedEmbeddingServer(
-            tables, histories, num_shards=ASYNC_SHARDS, q_block=4, group_size=GROUP_SIZE,
-            batch_size=32, flush_policy=policy, threaded=threaded, device=DEVICE)
-        crossbar_reduce_cuda.launches = 0
-        try:
-            if threaded:
-                for p in slices:
-                    server.register_producer(p)
-                _submit_from_producers(server, slices)
-                out = server.drain()
-            else:
-                parts = {n: [] for n in names}
-                for t, q in stream:
-                    for n, rows in server.submit(t, q).items():
-                        parts[n].append(rows)
-                for n, rows in server.flush().items():
-                    parts[n].append(rows)
-                out = {n: torch.cat(parts[n]) for n in names}
-        finally:
-            server.close()
-        launches += crossbar_reduce_cuda.launches
-        for n in names:
-            if not torch.equal(out[n], oracle[n]):
-                bad = float((out[n] - oracle[n]).abs().max().item())
-                raise AssertionError(f"async bits: {label} table {n} is not bit-identical "
-                                     f"to gather+sum (max_abs_err {bad})")
-        runs[label] = server.stats.summary()["batches"]
-    stats = {"rows": BITS_ROWS, "queries": len(stream), "shards": ASYNC_SHARDS,
-             "flushes": runs, "kernel_launches": launches, "bit_identical": True}
+    for drift in (False, True):
+        stream = drift_stream(np, base, BITS_ROWS, DRIFT_SEED) if drift else base
+        per_table = {n: [q for t, q in stream if t == n] for n in names}
+        oracle = {n: reduce_dense_oracle(tables[n], per_table[n]) for n in names}
+        # the k-th query of a table goes to producer k % 2: the (local_seq,
+        # pid) merge then restores each table's submission order
+        slices, count = {"p0": [], "p1": []}, {n: 0 for n in names}
+        for t, q in stream:
+            slices[f"p{count[t] % 2}"].append((t, q))
+            count[t] += 1
+        kw = {"num_shards": ASYNC_SHARDS, "q_block": 4, "group_size": GROUP_SIZE,
+              "batch_size": 32}
+        if drift:
+            kw.update(batch_size_for_eq1=BITS_EQ1_BATCH, replan=ReplanConfig(**REPLAN))
+        submit = _submit_in_turns if drift else _submit_from_producers
+        for label, policy, threaded in BITS_SETUPS:
+            server = ShardedEmbeddingServer(tables, histories, flush_policy=policy,
+                                            threaded=threaded, device=DEVICE, **kw)
+            crossbar_reduce_cuda.launches = 0
+            out = serve_bits(torch, server, names, stream, slices, threaded, submit)
+            launches += crossbar_reduce_cuda.launches
+            tag = f"{label}{'/replan' if drift else ''}"
+            for n in names:
+                if not torch.equal(out[n], oracle[n]):
+                    bad = float((out[n] - oracle[n]).abs().max().item())
+                    raise AssertionError(f"async bits: {tag} table {n} is not bit-identical "
+                                         f"to gather+sum (max_abs_err {bad})")
+            st = server.stats.summary()
+            runs[tag] = {"flushes": st["batches"]}
+            if not drift:
+                continue
+            cpu = ShardedEmbeddingServer(cpu_tables, histories, flush_policy=policy,
+                                         threaded=threaded, device="cpu", **kw)
+            cpu_out = serve_bits(torch, cpu, names, stream, slices, threaded, submit)
+            ct = cpu.stats.summary()
+            counts = {k: st[k] for k in ("replans", "rebases", "patched_tiles")}
+            if counts != {k: ct[k] for k in counts}:
+                raise AssertionError(f"replan bits: {tag} patched unlike the CPU server: "
+                                     f"{counts} against {ct}")
+            if st["patched_tiles"] <= 0:
+                raise AssertionError(f"replan bits: {tag} applied no patch that copies tiles")
+            for n in names:
+                if not torch.equal(out[n].cpu(), cpu_out[n]):
+                    raise AssertionError(f"replan bits: {tag} table {n} differs from the "
+                                         f"CPU server's")
+            if not torch.equal(server.shard_images.cpu(), cpu.shard_images):
+                raise AssertionError(f"replan bits: {tag} image differs from the CPU server's")
+            runs[tag].update(counts, capacity=int(server.shard_images.shape[1]))
+    stats = {"rows": BITS_ROWS, "queries": len(base), "shards": ASYNC_SHARDS,
+             "runs": runs, "kernel_launches": launches, "bit_identical": True}
     log("serving-async-bits", json.dumps(stats))
     return stats
 
@@ -1414,6 +1790,9 @@ def main() -> int:
     serving, serving_row, server, tables, streams, histories, served = phase_serving(
         torch, np, timer)
     serving_async = phase_serving_async(torch, np, tables, histories, streams, served)
+    torch.cuda.empty_cache()
+    serving_replan = phase_serving_replan(torch, np, timer, tables, histories, served,
+                                          serving_async)
     del served
     torch.cuda.empty_cache()
     phase_async_bits(torch, np)
@@ -1431,11 +1810,11 @@ def main() -> int:
 
     crossbar_src = "src/repro_torch/kernels/csrc/crossbar_reduce.cu"
     kernels = [
-        # launches over the serving and serving-async phases
+        # launches over the serving, serving-async and serving-replan phases
         kernel_entry("crossbar_reduce_blocked", crossbar_src,
                      "src/repro/kernels/crossbar_reduce.py:103",
-                     serving["kernel_launches"] + serving_async["kernel_launches"],
-                     serving_row),
+                     serving["kernel_launches"] + serving_async["kernel_launches"]
+                     + serving_replan["kernel_launches"], serving_row),
         # launches over the flat-op and DLRM phases
         kernel_entry("crossbar_reduce_flat", crossbar_src,
                      "src/repro/kernels/crossbar_reduce.py:54",

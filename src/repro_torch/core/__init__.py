@@ -25,6 +25,7 @@ from repro_torch.core.reduction import (
     block_compiled_queries,
     compile_queries,
     concat_compiled_queries,
+    fused_group_loads,
     offset_compiled_queries,
     reduce_dense_oracle,
     reduce_via_layout,
@@ -50,7 +51,7 @@ __all__ = [
     "CrossbarLayout", "build_layout", "compile_activations",
     "query_tile_bitmaps", "BlockUnionTracker", "BlockedQueries", "CompiledQueries",
     "ShardedBlockedQueries", "block_compiled_queries", "compile_queries",
-    "concat_compiled_queries", "offset_compiled_queries",
+    "concat_compiled_queries", "fused_group_loads", "offset_compiled_queries",
     "reduce_dense_oracle", "reduce_via_layout", "shard_block_queries",
     "READ_MODE", "MAC_MODE", "popcount", "select_mode", "torch_select_mode",
     "energy_breakeven_rows", "mode_statistics",

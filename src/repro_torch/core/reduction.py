@@ -437,6 +437,44 @@ class BlockUnionTracker:
         return nb * _padded_width(width, None, "pending block")
 
 
+def fused_group_loads(
+    cq: CompiledQueries, tile_group: np.ndarray, num_groups: int
+) -> np.ndarray:
+    """Per-fused-group active-row counts of a compiled batch.
+
+    The serve-time observation feeding drift tracking (DESIGN.md §6),
+    read off the batch compiled for the kernel anyway: each valid
+    (query, tile) slot adds its wordline popcount to the tile's group, so
+    a query touching *k* rows of a group counts *k* — the per-row
+    semantics the shard plan's ``group_load`` was built from.  All
+    replicas of a group map to the same group id.
+
+    The popcount is exact in every bitmap dtype: it is summed in float64.
+    The reference sums in the bitmaps' own dtype, which in bf16 stops
+    counting at 256 (1,024 ones sum to 256), so for a bf16 server with
+    ``tile_rows > 256`` it undercounts a slot with more than 256 active
+    rows; this port does not.
+
+    Args:
+      cq: a compiled batch in the *fused* tile space, on the CPU (the
+        server passes its host compile, so the observation never waits
+        for the card).
+      tile_group: ``(num_tiles,)`` fused tile id → fused group id
+        (``repeat(arange(G), group_copies)``).
+      num_groups: fused group count G.
+
+    Returns:
+      ``(G,)`` float64 active-row counts.
+    """
+    ids = cq.tile_ids
+    valid = ids >= 0
+    if not bool(valid.any()):
+        return np.zeros(num_groups, dtype=np.float64)
+    groups = np.asarray(tile_group)[ids[valid].numpy().astype(np.int64)]
+    rows = cq.bitmaps[valid].sum(dim=-1, dtype=torch.float64).numpy()
+    return np.bincount(groups, weights=rows, minlength=num_groups).astype(np.float64)
+
+
 def offset_compiled_queries(cq: CompiledQueries, tile_offset: int) -> CompiledQueries:
     """Rebases a per-table compile into the fused multi-table tile space."""
     ids = cq.tile_ids

@@ -26,10 +26,9 @@ table at once.  Consumed by
 :func:`repro_torch.core.reduction.shard_block_queries` (per-shard block
 compiler) and :mod:`repro_torch.kernels.sharded` (the sharded reduction).
 
-Plans are not immutable at serve time in the JAX package: its
-``dist/replan.py`` edits the placement arrays *incrementally* when
-serve-time access frequencies drift (DESIGN.md §6).  That module is not
-ported yet.
+Plans are not immutable at serve time: :mod:`repro_torch.dist.replan`
+edits the placement arrays *incrementally* when serve-time access
+frequencies drift (DESIGN.md §6).
 
 **Tiered storage** (DESIGN.md §9): when ``plan_shards`` is given a
 ``capacity_tiles`` budget, the shard images become a *hot tier* — a

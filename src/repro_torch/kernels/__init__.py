@@ -16,6 +16,7 @@ from repro_torch.kernels.sharded import (
     crossbar_reduce_sharded,
     crossbar_reduce_tables,
     dispatch_cache_stats,
+    patch_shard_images,
 )
 
 __all__ = [
@@ -24,5 +25,5 @@ __all__ = [
     "embedding_bag_cuda", "embedding_bag", "embedding_bag_ref",
     "fused_decode_attention_cuda", "fused_decode_attention_ref",
     "combine_bytes_per_batch", "crossbar_reduce_sharded",
-    "crossbar_reduce_tables", "dispatch_cache_stats",
+    "crossbar_reduce_tables", "dispatch_cache_stats", "patch_shard_images",
 ]

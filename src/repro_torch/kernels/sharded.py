@@ -7,6 +7,10 @@ partial sums are combined in float32.  On one card the shard loop runs
 in-program; the block axis is split into ``combine_chunks`` contiguous
 chunks, one kernel launch each, as the reference does.
 
+:func:`patch_shard_images` is the device half of online replanning: it
+copies only a plan patch's tiles from the host master image into the
+stacked shard images, in place.
+
 The multi-device path (``shard_map`` in the reference) comes with the
 ``torch.distributed`` slice of the port; passing ``mesh=`` raises until
 then.  PyTorch runs eagerly, so the reference's jit-dispatch caches have
@@ -142,6 +146,112 @@ def crossbar_reduce_tables(
         dynamic_switch=dynamic_switch, shard_ids=sbq.shards,
     )
     return [out[start : start + batch] for start, batch in spans]
+
+
+def resize_shard_images(images: torch.Tensor, capacity: int) -> torch.Tensor:
+    """The image stack at a per-shard depth of ``capacity`` slots.
+
+    Growing allocates one zero-padded stack and copies the old one in (a
+    transient of both stacks on the device); shrinking copies the kept
+    slots into a new contiguous stack, so the old storage is released
+    (a slice alone would be a view that keeps it alive, and for more than
+    one shard a non-contiguous one).  An unchanged depth returns
+    ``images`` itself.
+    """
+    S, depth = images.shape[0], images.shape[1]
+    if capacity > depth:
+        out = images.new_zeros((S, capacity) + tuple(images.shape[2:]))
+        out[:, :depth] = images
+        return out
+    if capacity < depth:
+        return images[:, :capacity].clone(memory_format=torch.contiguous_format)
+    return images
+
+
+def stage_patch_tiles(
+    writes, fused_image: np.ndarray, dtype: torch.dtype, *, pin: bool
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Host half of a patch: gathers the written tiles from the master
+    image with NumPy, in ``dtype``.
+
+    Returns ``(index, tiles)``: ``(2, n)`` int64 shard and slot indices
+    and the ``(n, tile_rows, dim)`` tiles.  With ``pin`` both live in
+    page-locked memory allocated by PyTorch's pinned-memory allocator,
+    which keeps each block alive until a copy queued from it has run.
+    """
+    w = np.asarray(writes, dtype=np.int64).reshape(-1, 3)
+    index = torch.from_numpy(np.ascontiguousarray(w[:, :2].T))
+    tiles = torch.from_numpy(np.take(fused_image, w[:, 2], axis=0)).to(dtype)
+    if pin:
+        index, tiles = index.pin_memory(), tiles.pin_memory()
+    return index, tiles
+
+
+def upload_patch_tiles(
+    index: torch.Tensor, tiles: torch.Tensor, device
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Copies the staged patch to ``device`` on the current stream,
+    without a host wait when the staging is pinned."""
+    return (index.to(device, non_blocking=True),
+            tiles.to(device, non_blocking=True))
+
+
+def scatter_patch_tiles(
+    images: torch.Tensor, index: torch.Tensor, tiles: torch.Tensor
+) -> None:
+    """Writes ``tiles`` into ``images[index[0], index[1]]`` in place, with
+    one indexed assignment on the current stream."""
+    images[index[0], index[1]] = tiles
+
+
+def patch_shard_images(
+    images: torch.Tensor,      # (S, capacity, tile_rows, dim) stacked shard images
+    patch,                     # repro_torch.dist.replan.PlanPatch (duck-typed)
+    fused_image: np.ndarray,   # (num_tiles, tile_rows, dim) host master copy
+) -> torch.Tensor:
+    """Copies ONLY a plan patch's tiles into the stacked shard images.
+
+    The device half of online replanning (DESIGN.md §6): the host master
+    image is the source, and the update is one batched indexed
+    assignment of the patch's writes — never a rebuild of the stack.
+    Slots freed by demotions keep their stale bytes; the plan stops
+    addressing them.  A ``new_capacity`` above the current depth grows
+    the stack with zero tiles first; one below it (slack age-out) shrinks
+    it to a new stack, releasing the old one.
+
+    On the card the tiles are staged in pinned memory, copied with
+    ``non_blocking=True`` and written on the current stream: nothing here
+    waits for the card or reads device data back.
+
+    **In place**, unlike the reference's functional ``.at[].set``: when
+    the depth is unchanged, ``images`` itself is written and returned.  A
+    caller that needs the old image clones it first.
+
+    Args:
+      images: the serving image stack (``ShardPlan.build_shard_images``
+        output, possibly already patched or slack-padded).
+      patch: the :class:`~repro_torch.dist.replan.PlanPatch` being
+        applied; only ``dma``, ``fetch_dma``, ``moved`` and
+        ``new_capacity`` are read.
+      fused_image: the fused multi-table host image the plan indexes
+        (:func:`~repro_torch.dist.shard_plan.build_fused_image`).
+
+    Returns:
+      The patched stack: ``images`` itself unless the depth changed.
+    """
+    images = resize_shard_images(images, int(patch.new_capacity))
+    # (shard, slot, fused_tile): promotions' new holders, paged-in tiles,
+    # then slack age-out's relocations
+    writes = list(patch.dma)
+    writes += list(getattr(patch, "fetch_dma", ()) or ())
+    writes += [(s, new, t) for s, t, _old, new in patch.moved]
+    if writes:
+        index, tiles = stage_patch_tiles(
+            writes, fused_image, images.dtype, pin=images.is_cuda
+        )
+        index, tiles = upload_patch_tiles(index, tiles, images.device)
+        scatter_patch_tiles(images, index, tiles)
+    return images
 
 
 def combine_bytes_per_batch(

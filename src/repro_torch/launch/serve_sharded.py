@@ -4,7 +4,10 @@ Stands up a :class:`~repro_torch.serve.sharded.ShardedEmbeddingServer`
 over synthetic tables on one device (``--shards`` are emulated in the
 shard loop), drives a stream of per-table Zipf queries through
 ``submit``/``flush`` (or, with ``--producers N``, from N producer threads
-and one final ``drain``) and prints the report as JSON.
+and one final ``drain``) and prints the report as JSON.  With
+``--drift`` every row id of the stream's tail is remapped through a fixed
+permutation (a hot-set rotation the offline plan never saw) and the
+server replans online (``replan=``).
 
 Usage::
 
@@ -13,6 +16,9 @@ Usage::
         --rows 512 --history 256 --requests 128 --batch-size 32
     PYTHONPATH=src python -m repro_torch.launch.serve_sharded --shards 4 \\
         --flush-policy owner-set --owner-set-max 2 --threaded --producers 2 --skew 3
+    PYTHONPATH=src python -m repro_torch.launch.serve_sharded --device cpu \
+        --shards 2 --tables 2 --rows 512 --history 512 --requests 384 \
+        --batch-size 32 --drift --replan-min-queries 32 --replan-half-life 2
 
 The device defaults to ``cuda``; there is no fallback to the CPU, which
 runs the kernels' plain versions only when asked for with ``--device cpu``.
@@ -84,6 +90,17 @@ def parse_args(argv=None):
     ap.add_argument("--max-retries", type=int, default=2,
                     help="in-place re-dispatch attempts per failed flush "
                          "before bisection/quarantine")
+    ap.add_argument("--drift", action="store_true",
+                    help="drifting-workload replay: rotate the hot set "
+                         "mid-stream and replan online")
+    ap.add_argument("--drift-at", type=float, default=0.5,
+                    help="fraction of the stream after which rows remap")
+    ap.add_argument("--drift-seed", type=int, default=7)
+    ap.add_argument("--replan-threshold", type=float, default=0.2)
+    ap.add_argument("--replan-half-life", type=float, default=4.0)
+    ap.add_argument("--replan-min-queries", type=int, default=64)
+    ap.add_argument("--slack-tiles", type=int, default=8,
+                    help="per-shard zero-tile image headroom for promotions")
     return ap.parse_args(argv)
 
 
@@ -92,7 +109,7 @@ def main(args) -> dict:
 
     from repro_torch.convert import tables_from_numpy
     from repro_torch.data import zipf_queries
-    from repro_torch.serve import RetryPolicy, ShardedEmbeddingServer
+    from repro_torch.serve import ReplanConfig, RetryPolicy, ShardedEmbeddingServer
 
     rng = np.random.default_rng(0)
     tables = tables_from_numpy({
@@ -115,8 +132,22 @@ def main(args) -> dict:
         max_in_flight=args.max_in_flight,
         threaded=args.threaded,
         retry=RetryPolicy(max_retries=args.max_retries, watchdog_s=args.watchdog),
+        replan=ReplanConfig(
+            threshold=args.replan_threshold,
+            half_life=args.replan_half_life,
+            min_queries=args.replan_min_queries,
+            slack_tiles=args.slack_tiles,
+        ) if args.drift else None,
     )
     stream = zipf_queries(args.rows, args.requests, args.mean_bag, seed=1234)
+    if args.drift:
+        # hot-set rotation: the stream's tail remaps every row id through
+        # a fixed permutation, which the replanner must chase online
+        cut = int(len(stream) * args.drift_at)
+        perm = np.random.default_rng(args.drift_seed).permutation(args.rows)
+        stream = stream[:cut] + [
+            perm[np.asarray(q, dtype=np.int64)].tolist() for q in stream[cut:]
+        ]
     names = list(tables)
     # per-table arrival replay: round robin at skew 1, weighted choice
     # otherwise (table i's arrival rate ∝ skew^-i)

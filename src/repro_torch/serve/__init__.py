@@ -1,6 +1,7 @@
 """Embedding serving.  Unlike ``repro.serve``, importing this package
 pulls in no LM decode path."""
 
+from repro_torch.serve.drift import DriftTracker, LoadObservationCache, ReplanConfig
 from repro_torch.serve.faults import ErrorLedger, FlushTimeout, RetryPolicy
 from repro_torch.serve.producers import (
     DEFAULT_PRODUCER,
@@ -15,4 +16,5 @@ __all__ = [
     "FlushPolicy", "FlushScheduler", "POOL",
     "ProducerRegistry", "DEFAULT_PRODUCER", "SEQ_STRIDE",
     "RetryPolicy", "ErrorLedger", "FlushTimeout",
+    "ReplanConfig", "DriftTracker", "LoadObservationCache",
 ]

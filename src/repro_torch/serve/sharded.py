@@ -45,10 +45,24 @@ tables on a CPU server; on the card its batch goes back to its home and
 :class:`~repro_torch.serve.faults.FlushTimeout` raises, since work never
 moves from the card to the host.
 
+**Online replanning** (``replan=``, DESIGN.md §6): each flush also feeds
+its compiled batch's per-group loads — read off the CPU compile, so the
+card is never waited for — to a :class:`~repro_torch.serve.drift.
+DriftTracker`, between the kernels' dispatch and the wait for their
+event.  When the decayed observation drifts past the configured
+total-variation threshold, the server stages an incremental
+:class:`~repro_torch.dist.replan.PlanPatch` and applies it at the next
+flush (``"global"``) or pipeline barrier (async policies): the placement
+arrays swap and only the patch's tiles are copied from the host master
+image into the image stack (:func:`repro_torch.kernels.sharded.
+patch_shard_images`, in place, on the server's stream).  Two deliberate
+differences from the reference: only a server with ``replan=`` keeps the
+host master image (the reference keeps it on every server), and the
+patch writes the image in place.
+
 Not ported yet, and refused with ``NotImplementedError`` naming the slice
-that brings them: online replanning (drift/replan slice), tiered storage
-and fault injection (tiers and faults slice), and ``mesh=``
-(``torch.distributed`` slice).
+that brings them: tiered storage and fault injection (tiers and faults
+slice), and ``mesh=`` (``torch.distributed`` slice).
 """
 
 from __future__ import annotations
@@ -68,19 +82,28 @@ from repro_torch.core.cooccurrence import build_cooccurrence
 from repro_torch.core.grouping import correlation_aware_grouping
 from repro_torch.core.mapping import build_layout
 from repro_torch.core.reduction import (
+    CompiledQueries,
     compile_queries,
     concat_compiled_queries,
     offset_compiled_queries,
     shard_block_queries,
 )
 from repro_torch.core.replication import plan_replication
+from repro_torch.dist.replan import (
+    PlanPatch,
+    apply_plan_patch,
+    compute_plan_patch,
+    rescale_load_to_plan,
+)
 from repro_torch.dist.shard_plan import ShardPlan, build_fused_image, plan_shards
 from repro_torch.kernels._build import KernelError
 from repro_torch.kernels.sharded import (
     combine_bytes_per_batch,
     crossbar_reduce_tables,
     dispatch_cache_stats,
+    patch_shard_images,
 )
+from repro_torch.serve.drift import DriftTracker, LoadObservationCache, ReplanConfig
 from repro_torch.serve.faults import (
     ErrorLedger,
     FlushTimeout,
@@ -101,6 +124,7 @@ class _InFlight:
     seqs: Dict[str, np.ndarray]            # per-table submission sequence ids
     t0: float                              # host compile start (perf_counter)
     n_queries: int
+    host_cq: object = None                 # the fused CPU compile (drift observation)
     # recorded on the server's stream after the flush's last kernel;
     # None (CPU tensors, a test stub) counts as complete
     event: Optional[object] = None
@@ -127,9 +151,9 @@ class ShardedServeStats:
     ``hidden_compile_s`` (host compile time that ran while an earlier
     flush was still running on the card) over ``host_compile_s``.
     Latency samples are kept raw (one float per flush / per submit / per
-    async query) so :meth:`summary` can report percentiles.  The replan
-    and tier counters keep the reference's schema and stay zero until
-    their slices are ported.
+    async query) so :meth:`summary` can report percentiles.  The tier
+    counters keep the reference's schema and stay zero until the tiers
+    slice is ported (``load_obs_*`` count the drift observation's memo).
     """
 
     num_shards: int
@@ -146,7 +170,7 @@ class ShardedServeStats:
     # ---- async flush scheduling (DESIGN.md §7) ----
     shard_flushes: Dict[object, int] = dataclasses.field(default_factory=dict)
     participant_sizes: Dict[int, int] = dataclasses.field(default_factory=dict)
-    barrier_flushes: int = 0               # pipeline drains (explicit)
+    barrier_flushes: int = 0               # pipeline drains (patch/explicit)
     deadline_flushes: int = 0              # flushes forced by query age
     host_compile_s: float = 0.0            # Σ per-flush host compile time
     hidden_compile_s: float = 0.0          # … of which overlapped device exec
@@ -156,10 +180,10 @@ class ShardedServeStats:
     # submit-stamp → result-retired, one sample per async query
     # (quarantined queries never complete, so they never sample)
     e2e_wall: List[float] = dataclasses.field(default_factory=list)
-    # ---- online replanning (DESIGN.md §6; drift/replan slice) ----
-    replans: int = 0
-    rebases: int = 0
-    patched_tiles: int = 0
+    # ---- online replanning (DESIGN.md §6) ----
+    replans: int = 0                       # patches applied (moves > 0)
+    rebases: int = 0                       # no-op patches (load reanchor only)
+    patched_tiles: int = 0                 # Σ tiles copied by applied patches
     promoted_groups: int = 0
     demoted_groups: int = 0
     # ---- tiered host/device storage (DESIGN.md §9; tiers slice) ----
@@ -171,7 +195,7 @@ class ShardedServeStats:
     fetched_tiles: int = 0
     evicted_tiles: int = 0
     paging_bytes: int = 0
-    load_obs_hits: int = 0
+    load_obs_hits: int = 0                 # drift-observation memo hits
     load_obs_misses: int = 0
     # ---- failure/recovery accounting (DESIGN.md §8) ----
     ledger: ErrorLedger = dataclasses.field(default_factory=ErrorLedger)
@@ -221,6 +245,21 @@ class ShardedServeStats:
         """Fraction of host compile time hidden behind device execution."""
         return (self.hidden_compile_s / self.host_compile_s
                 if self.host_compile_s > 0 else 0.0)
+
+    def record_patch(self, patch: PlanPatch, tile_bytes: int = 0) -> None:
+        """Accounts one applied plan patch (replan vs rebase, moved
+        tiles, promotions/demotions, paging traffic)."""
+        fetched = len(getattr(patch, "fetch_dma", ()) or ())
+        self.fetched_tiles += fetched
+        self.evicted_tiles += int(getattr(patch, "evicted_tiles", 0) or 0)
+        self.paging_bytes += fetched * int(tile_bytes)
+        if patch.is_noop():
+            self.rebases += 1
+            return
+        self.replans += 1
+        self.patched_tiles += patch.num_moved_tiles + patch.num_relocated_tiles
+        self.promoted_groups += len(patch.promoted)
+        self.demoted_groups += len(patch.demoted)
 
     def summary(self) -> Dict[str, object]:
         """Flat metrics dict for reports (counters, latency percentiles,
@@ -312,6 +351,8 @@ class ShardedEmbeddingServer:
         JAX side's arrays).  The image keeps their dtype.  A CPU server
         under an async policy keeps a host copy of each (float32 for
         bf16) for the watchdog's degrade path; a CUDA server keeps none.
+        With ``replan=`` the server also keeps the fused host master
+        image (float32 for bf16) its patches copy tiles from.
       histories: ``{name: ragged lookup history}`` driving the offline
         pipeline (grouping + Eq.-1 replication) per table.
       num_shards: shards to plan for; emulated on one device.
@@ -319,6 +360,8 @@ class ShardedEmbeddingServer:
       group_size: crossbar height (tile rows).
       batch_size: auto-flush threshold for :meth:`submit`.
       batch_size_for_eq1: Eq. 1's ``batch``; defaults to ``batch_size``.
+        Online replanning re-evaluates Eq. 1 at this batch size unless
+        ``replan.eq1_batch`` overrides it.
       combine_chunks: block-axis chunks (one kernel launch each per shard).
       dynamic_switch: enable the paper's §III-D READ/MAC switch.
       device: where the shard images live and the kernels run.  On a
@@ -336,9 +379,11 @@ class ShardedEmbeddingServer:
         (or the context manager) stops it.  Requires an async policy.
       retry: the self-healing policy (:class:`~repro_torch.serve.faults.
         RetryPolicy`; ``None`` = defaults, healing on, watchdog off).
-      mesh, replan, tiers, faults: the reference server's other modes;
-        anything but ``None`` raises ``NotImplementedError`` naming the
-        slice that ports it.
+      replan: optional :class:`~repro_torch.serve.drift.ReplanConfig`
+        enabling drift-triggered incremental replanning (DESIGN.md §6).
+      mesh, tiers, faults: the reference server's other modes; anything
+        but ``None`` raises ``NotImplementedError`` naming the slice that
+        ports it.
     """
 
     def __init__(
@@ -363,14 +408,12 @@ class ShardedEmbeddingServer:
         max_in_flight: int = 2,
         threaded: bool = False,
         retry: RetryPolicy | None = None,
-        replan=None,
+        replan: ReplanConfig | None = None,
         tiers=None,
         faults=None,
     ):
         if mesh is not None:
             raise _not_ported("mesh= (one shard per device)", "torch.distributed")
-        if replan is not None:
-            raise _not_ported("replan=", "drift/replan")
         if tiers is not None or faults is not None:
             raise _not_ported("tiers= / faults=", "tiers and faults")
         if set(tables) != set(histories):
@@ -437,12 +480,60 @@ class ShardedEmbeddingServer:
         )
         fused = build_fused_image(self.layouts, [host[n] for n in self.names])
         images = self.plan.build_shard_images(fused)
-        del fused
-        #: (num_shards, max_local_tiles, tile_rows, dim), allocated once
+        if replan is not None and replan.slack_tiles > 0:
+            # zero-tile headroom so early promotions fill slack instead
+            # of growing (reallocating) the image stack on the device
+            pad = np.zeros(
+                (num_shards, replan.slack_tiles) + images.shape[2:],
+                dtype=images.dtype,
+            )
+            images = np.concatenate([images, pad], axis=1)
+        #: (num_shards, capacity, tile_rows, dim) on the device; replaced
+        #: only when a plan patch grows or shrinks its depth
         self.shard_images = torch.from_numpy(images).to(
             device=self.device, dtype=self.dtype
         )
         del images
+        # ---- online replanning state (DESIGN.md §6) ----
+        self.replan_cfg = replan
+        self._eq1_batch = (
+            replan.eq1_batch if replan and replan.eq1_batch else eq1_batch
+        )
+        # the host master image, the source of every patch's tiles: kept
+        # only with replan= (the reference keeps it on every server)
+        self._fused: Optional[np.ndarray] = fused if replan is not None else None
+        del fused
+        #: host→device bytes of one fused tile, in the image dtype
+        self._tile_bytes = (
+            self.layouts[0].tile_rows * self.dim * self.shard_images.element_size()
+        )
+        self._tile_group = np.repeat(
+            np.arange(self.plan.num_groups, dtype=np.int64),
+            self.plan.group_copies,
+        )
+        # per-table training-time load mass: Eq. 1 is evaluated at this
+        # magnitude at replan time (see rescale_load_to_plan)
+        self._segments = [
+            (seg.group_offset, seg.group_offset + seg.num_groups)
+            for seg in self.plan.tables
+        ]
+        self._seg_load_totals = [
+            float(self.plan.group_load[a:b].sum()) for a, b in self._segments
+        ]
+        self.tracker: Optional[DriftTracker] = (
+            DriftTracker(self.plan.group_load, half_life=replan.half_life,
+                         min_queries=replan.min_queries)
+            if replan is not None else None
+        )
+        self._staged: Optional[PlanPatch] = None
+        self._demote_streak = 0
+        # per-flush drift-observation memo (content-keyed)
+        self._load_obs: Optional[LoadObservationCache] = (
+            LoadObservationCache() if replan is not None else None
+        )
+        # patch-apply failures in a row (the faults slice's injector
+        # branch of _apply_staged_patch counts here)
+        self._patch_fail_streak = 0
         self.stats = ShardedServeStats(
             num_shards=num_shards, q_block=q_block, policy=self.policy.kind
         )
@@ -527,11 +618,13 @@ class ShardedEmbeddingServer:
     ) -> Dict[str, torch.Tensor]:
         """Serves one synchronous multi-table batch.
 
-        Compiles each table's ragged queries on the host, rebases them
-        into the fused tile space, block-compiles per shard, runs the
-        sharded kernel and waits for it.  On an async server this is a
-        barrier first: pending and in-flight work drains before the
-        batch compiles.
+        Applies a staged plan patch (``"global"``), compiles each table's
+        ragged queries on the host, rebases them into the fused tile
+        space, block-compiles per shard and dispatches the sharded
+        kernel; while the card runs it, the drift observation runs on the
+        host (``replan=``), then the call waits for the kernel.  On an
+        async server this is a barrier first: pending and in-flight work
+        drains, and a staged patch applies, before the batch compiles.
 
         Args:
           queries_by_table: ``{table name: ragged row-id queries}``;
@@ -551,12 +644,18 @@ class ShardedEmbeddingServer:
         served = [n for n in self.names if queries_by_table.get(n)]
         if not served:
             return {}
+        # a synchronous serve is a barrier: async-pending queries flush
+        # under the plan they were routed against and the pipeline drains
+        # (the barrier applies any staged patch); in global mode nothing
+        # is ever in flight and the staged patch applies here
         if self.scheduler is not None:
             self._barrier()
+        else:
+            self._apply_staged_patch()
         queries_of = {n: list(queries_by_table[n]) for n in served}
         with self._on_stream():
             tc = time.perf_counter()
-            sbq, spans = self._compile_batch(served, queries_of)
+            host_cq, sbq, spans = self._compile_batch(served, queries_of)
             # a synchronous compile sits on the serving critical path
             self.stats.record_compile(time.perf_counter() - tc, hidden=False)
             outs = crossbar_reduce_tables(
@@ -565,6 +664,9 @@ class ShardedEmbeddingServer:
                 dynamic_switch=self.dynamic_switch,
             )
             event = self._record_event()
+        # the kernels are dispatched but not waited for: the drift
+        # observation is host work on the CPU compile and overlaps them
+        self._observe_and_stage(host_cq, sum(len(queries_of[n]) for n in served))
         if event is not None:
             event.synchronize()
         self.stats.record(
@@ -579,7 +681,8 @@ class ShardedEmbeddingServer:
         span tables) → per-shard block compile for ``participants``
         (``None`` = every shard), moved to the device.
 
-        Returns ``(sbq, spans)``.
+        Returns ``(host_cq, sbq, spans)``: ``host_cq`` is the fused
+        compile on the CPU, which the drift observation reads.
         """
         cqs = []
         for name in served:
@@ -594,7 +697,105 @@ class ShardedEmbeddingServer:
             fused_cq, self.plan, self.q_block,
             participants=participants, device=self.device,
         )
-        return sbq, spans
+        return fused_cq, sbq, spans
+
+    # --------------------------------------------------------- replanning --
+
+    def _apply_staged_patch(self) -> None:
+        """Swaps in the patch staged during an earlier flush.
+
+        Runs before anything is compiled against the plan (the top of a
+        ``"global"`` serve, or a barrier after the pipeline drained), so
+        flush *n* ran entirely under the old plan and flush *n+1* runs
+        entirely under the new one.  Only the patch's tiles are copied
+        into the image stack, on the server's stream; a failed copy or
+        write raises (nothing is skipped).
+        """
+        if self._staged is None:
+            return
+        if self._in_flight:
+            raise RuntimeError(
+                "plan patch applied mid-pipeline — barrier rule violated"
+            )
+        patch, self._staged = self._staged, None
+        self._patch_fail_streak = 0
+        with self._on_stream():
+            self.shard_images = patch_shard_images(
+                self.shard_images, patch, self._fused
+            )
+        self.plan = apply_plan_patch(self.plan, patch)
+        self.stats.record_patch(patch, tile_bytes=self._tile_bytes)
+        # slack age-out bookkeeping (DESIGN.md §6.2): demotion-only
+        # patches extend the streak, any promotion resets it
+        if patch.promoted:
+            self._demote_streak = 0
+        elif patch.demoted:
+            self._demote_streak += 1
+        if self.scheduler is not None:
+            # ownership moved: re-derive row→home routing (pending work
+            # was flushed under the old plan before we got here)
+            self.scheduler.rebuild(self.plan)
+
+    def _observe_and_stage(self, host_cq: CompiledQueries, n_queries: int) -> None:
+        """Feeds the tracker and stages a patch when drift crosses.
+
+        Host-only work on the CPU compile, scheduled between a flush's
+        kernel dispatch and the wait for its event.  A no-op
+        (class-unchanged) patch is applied at once as a load rebase: it
+        touches no device state.
+        """
+        if self.tracker is None:
+            return
+        loads = self._load_obs.loads(
+            host_cq, self._tile_group, self.plan.num_groups
+        )
+        self.stats.load_obs_hits = self._load_obs.hits
+        self.stats.load_obs_misses = self._load_obs.misses
+        self.tracker.observe(loads, n_queries)
+        self._maybe_stage()
+
+    def _maybe_stage(self) -> None:
+        """Stages a patch when the tracked drift crosses the threshold."""
+        if self._staged is not None or not self.tracker.ready:
+            return
+        drift = self.tracker.drift_from(
+            self.plan.group_load, segments=self._segments
+        )
+        if drift < self.replan_cfg.threshold:
+            return
+        # Eq. 1 is magnitude-sensitive: evaluate the observed
+        # distribution at the training-time mass, not the tracker's
+        drifted = rescale_load_to_plan(
+            self.tracker.load(), self.plan, self._seg_load_totals
+        )
+        # long demotion streaks age the accumulated slack back out
+        shrink = (
+            self.replan_cfg.slack_tiles
+            if self.replan_cfg.shrink_streak
+            and self._demote_streak >= self.replan_cfg.shrink_streak
+            else None
+        )
+        # only groups with traffic since the last evaluation (plus the
+        # replicated set, added inside) can change replication class
+        candidates = self.tracker.drifted_groups()
+        self.tracker.reset_drifted()
+        patch = compute_plan_patch(
+            self.plan, drifted,
+            eq1_batch=self._eq1_batch,
+            capacity=int(self.shard_images.shape[1]),
+            shrink_slack=shrink,
+            candidates=candidates,
+        )
+        if patch.deferred:
+            self.tracker.mark_drifted(patch.deferred)
+        if patch.is_noop():
+            # drift without a class change: reanchor group_load so the
+            # demotion targets and the drift statistic track the
+            # observed distribution
+            self.plan = apply_plan_patch(self.plan, patch)
+            self.stats.record_patch(patch, tile_bytes=self._tile_bytes)
+            return
+        self._staged = patch
 
     # ----------------------------------------------------------- batching --
 
@@ -752,8 +953,19 @@ class ShardedEmbeddingServer:
     # ------------------------------------------------- async flush engine --
 
     def _maybe_flush(self) -> None:
-        """Dispatches every home the policy says is due."""
-        for home in self.scheduler.due_homes():
+        """Dispatches every home the policy says is due.
+
+        If a plan patch is staged, the next trigger forces a **barrier**
+        instead (DESIGN.md §7.3): the pipeline drains under the old plan,
+        the patch applies, and traffic resumes under the new one.
+        """
+        due = self.scheduler.due_homes()
+        if not due:
+            return
+        if self._staged is not None:
+            self._barrier()
+            return
+        for home in due:
             self._flush_home(home)
 
     def _flush_home(self, home, *, forced: bool = False) -> None:
@@ -846,6 +1058,9 @@ class ShardedEmbeddingServer:
             self.stats.in_flight_peak, len(self._in_flight)
         )
         self.stats.record_flush_home(home)
+        # drift bookkeeping is host work on the CPU compile: it overlaps
+        # this flush's kernels exactly like the next flush's compile does
+        self._observe_and_stage(entry.host_cq, entry.n_queries)
         while len(self._in_flight) > self.policy.max_in_flight:
             self._retire_oldest()
 
@@ -883,7 +1098,7 @@ class ShardedEmbeddingServer:
             qs.append(query)
         served = [n for n in self.names if n in by_table]
         with self._on_stream():
-            sbq, spans = self._compile_batch(
+            host_cq, sbq, spans = self._compile_batch(
                 served, {n: by_table[n][1] for n in served},
                 participants=participants,
             )
@@ -901,7 +1116,7 @@ class ShardedEmbeddingServer:
             seqs={n: np.asarray(by_table[n][0], dtype=np.int64)
                   for n in served},
             t0=t0, n_queries=sum(len(by_table[n][1]) for n in served),
-            event=event, t_dispatch=time.perf_counter(),
+            host_cq=host_cq, event=event, t_dispatch=time.perf_counter(),
         )
 
     def _retire_oldest(self) -> None:
@@ -1022,11 +1237,12 @@ class ShardedEmbeddingServer:
         )
 
     def _barrier(self) -> None:
-        """Flush-everything + drain of the pipeline.
+        """Flush-everything + drain + apply any staged patch.
 
-        Pending queries compile under the plan they were routed against
-        and every dispatched flush retires.  With the thread driver
-        running, a caller on any other thread posts a barrier token onto
+        Pending queries compile under the plan they were routed against;
+        only after every dispatched flush retires does the staged patch
+        swap placement arrays and images and the scheduler re-derive its
+        routing.  With the thread driver running, a caller on any other thread posts a barrier token onto
         the hand-off queue and joins the driver at it: the driver first
         drains every earlier hand-off item (FIFO), then runs this barrier
         inline.
@@ -1049,6 +1265,7 @@ class ShardedEmbeddingServer:
             self._flush_home(home, forced=True)
         while self._in_flight:
             self._retire_oldest()
+        self._apply_staged_patch()
         self.stats.barrier_flushes += 1
 
     # ------------------------------------------------------ thread driver --
@@ -1233,8 +1450,9 @@ class ShardedEmbeddingServer:
     def drain(self, producer=None) -> Dict[str, torch.Tensor]:
         """Barrier + result hand-off for async policies.
 
-        Flushes every pending home, retires the whole in-flight queue
-        and returns everything served since the previous hand-off.
+        Flushes every pending home, retires the whole in-flight queue,
+        applies a staged plan patch and returns everything served since
+        the previous hand-off.
         Under the thread driver this joins the driver at a barrier
         token; a failure stashed by the driver surfaces here.
 
@@ -1335,9 +1553,11 @@ class ShardedEmbeddingServer:
         ``serve["faults"]``), ``mode`` (``"emulated"``), ``retry`` (the
         live :class:`RetryPolicy` knobs), ``dispatch_cache`` (the
         reference's schema, all zero), ``device``, ``image_bytes`` (the
-        shard image stack on the device) and, under an async policy,
+        shard image stack on the device), under an async policy
         ``scheduler`` (policy knobs, pipeline depth, pending/fill and
-        producers).
+        producers) and, with ``replan=``, ``replan`` (drift against the
+        live plan, tracker readiness, the staged patch's summary, image
+        capacity and slack).
         """
         rep: Dict[str, object] = {
             "tables": self.names,
@@ -1366,6 +1586,25 @@ class ShardedEmbeddingServer:
                 "closed": self._snapshot_closed(),
                 **self.scheduler.state(),
                 "producers": self._registry.state(),
+            }
+        if self.tracker is not None:
+            # one snapshot of what a barrier on the driver may swap
+            plan, staged = self.plan, self._staged
+            capacity = int(self.shard_images.shape[1])
+            rep["replan"] = {
+                "threshold": self.replan_cfg.threshold,
+                "half_life": self.replan_cfg.half_life,
+                "drift": self.tracker.drift_from(
+                    plan.group_load, segments=self._segments
+                ),
+                "observed_queries": self.tracker.observed_queries,
+                "ready": self.tracker.ready,
+                "staged": staged.summary() if staged is not None else None,
+                "image_capacity": capacity,
+                # free headroom above the highest allocated slot — what
+                # slack age-out (shrink_streak) reclaims
+                "slack_slots": capacity - plan.max_local_tiles,
+                "demote_streak": self._demote_streak,
             }
         return rep
 

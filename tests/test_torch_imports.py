@@ -48,7 +48,8 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
                 "repro_torch.serve.kvcache", "repro_torch.serve.decode",
                 "repro_torch.serve.batching", "repro_torch.launch.serve",
                 "repro_torch.serve.scheduler", "repro_torch.serve.producers",
-                "repro_torch.serve.faults"):
+                "repro_torch.serve.faults", "repro_torch.serve.drift",
+                "repro_torch.dist.replan"):
         assert mod in res["modules"]
 
 

@@ -17,6 +17,7 @@ import torch
 from repro.data import zipf_queries
 from repro.serve import ShardedEmbeddingServer as JaxServer
 from repro_torch.convert import shard_images_from_numpy, tables_from_numpy
+from repro_torch.serve import ReplanConfig
 from repro_torch.serve import ShardedEmbeddingServer as TorchServer
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -114,7 +115,8 @@ def test_bf16_tables_keep_their_dtype():
     ({"flush_policy": "per-shard"}, None, None),
     # the reference's rule: the thread driver needs an async kind
     ({"threaded": True}, ValueError, "async kind"),
-    ({"replan": object()}, NotImplementedError, "drift/replan"),
+    # drift tracking and replanning are ported: this case serves
+    ({"replan": ReplanConfig()}, None, None),
     ({"tiers": object()}, NotImplementedError, "tiers and faults"),
     ({"faults": object()}, NotImplementedError, "tiers and faults"),
 ])
@@ -126,13 +128,20 @@ def test_unported_modes_raise(kwargs, error, match):
         return
     port = TorchServer(tables_from_numpy(tables, "cpu"), histories, q_block=4,
                        group_size=16, batch_size=12, device="cpu", **kwargs)
+    # a "global" server returns rows from submit(); an async one only
+    # from drain()
+    parts = {"a": [], "b": []}
     for name, q in stream:
-        assert port.submit(name, q) == {}
-    out = port.drain()
+        out = port.submit(name, q)
+        assert out == {} or port.scheduler is None
+        for n, rows in out.items():
+            parts[n].append(rows)
+    for n, rows in port.drain().items():
+        parts[n].append(rows)
     for name in ("a", "b"):
         qs = [q for n, q in stream if n == name]
         want = np.stack([tables[name][np.unique(q)].sum(axis=0) for q in qs])
-        np.testing.assert_array_equal(out[name].numpy(), want)
+        np.testing.assert_array_equal(torch.cat(parts[name]).numpy(), want)
 
 
 def test_submit_validation_and_close():
