@@ -45,9 +45,24 @@ Phases, in order; any failure propagates and the process exits non-zero:
    host master image bit for bit, one dispatch plus its drift
    observation must return with its event pending; the patch's host
    gather, copy and scatter are timed beside a pinned copy of the same
-   bytes; the integer-valued stream, drifted, under ``replan=`` in the
-   same five setups, each bit-identical to the port's CPU server with
-   the same replans and patched tiles;
+   bytes; serving-tiers: the serving-replan configuration and stream
+   with ``tiers=TierConfig(capacity_frac=0.25)``, a hot tier of a
+   quarter of the uncapped image depth: queries must take both routes
+   (the crossbar kernel and the host gather+sum over the master image),
+   a barrier must fetch tiles and the depth stay at the capacity; rows
+   are held against the serving phase's and gather+sum, fetched and
+   sampled slots against the master image; the host flush's gather,
+   sum and copy are timed; the integer-valued stream, drifted, under
+   ``replan=`` and then under ``tiers=`` (half the uncapped depth) in
+   the same five setups, each bit-identical to the port's CPU server
+   with the same replans, patched tiles, host queries and fetched and
+   evicted tiles (the tiered ones also to the uncapped server), plus a
+   tiered run whose first two patch applies fail; chaos bits:
+   ``tests/test_faults.py``'s threaded chaos replay (transient compile
+   and device faults, a poisoned query, a hang past the watchdog) on the
+   card, the hang raising ``FlushTimeout`` and a later drain returning
+   every row, equal to the CPU server's rows, retries and quarantine;
+   then a short hang that recovers with no timeout;
 5. flat op: ``ops.crossbar_reduce`` on one table's compiled queries
    against ``reduce_dense_oracle`` on the card;
 6. embedding-bag parity: the embedding-bag kernel against its plain
@@ -131,6 +146,9 @@ DRIFT_SEED = 7                         # serving-replan: the hot-set rotation's 
 # serving-replan: launch/serve_sharded.py's --drift defaults
 REPLAN = {"threshold": 0.2, "half_life": 4.0, "min_queries": 64, "slack_tiles": 8}
 BITS_EQ1_BATCH = 512                   # replan bits: Eq. 1 promotes at 4 shards
+TIER_FRAC = 0.25                       # serving-tiers: launch/serve_sharded.py's --capacity-frac example
+TIER_BITS_FRAC = 0.5                   # tier bits: the integer-valued tables' hot tier
+CHAOS_ROWS = 160                       # chaos bits: tests/test_faults.py's tables
 SAMPLE_SLOTS = 4_096                   # serving-replan: unpatched image slots held to the master
 SAMPLE_ROWS = 256
 ASYNC_SHARDS = 4                       # serving-async: shards emulated on the one card
@@ -676,7 +694,7 @@ def drift_stream(np, order, rows, seed):
                           for name, q in order[cut:]]
 
 
-def check_image_slots(torch, np, server, written, gen) -> dict:
+def check_image_slots(torch, np, server, written, gen, tag="serving-replan") -> dict:
     """Every addressed slot a patch wrote, and ``SAMPLE_SLOTS`` other
     addressed slots, must hold their tile of the host master image bit
     for bit (compared on the card)."""
@@ -697,7 +715,7 @@ def check_image_slots(torch, np, server, written, gen) -> dict:
         got = images[torch.from_numpy(ks // cap).to(DEVICE), torch.from_numpy(ks % cap).to(DEVICE)]
         want = torch.from_numpy(server._fused[t]).to(device=DEVICE, dtype=images.dtype)
         if not torch.equal(got, want):
-            raise AssertionError("serving-replan: an image slot differs from its master tile")
+            raise AssertionError(f"{tag}: an image slot differs from its master tile")
     return {"patched_slots_checked": int(patched.size), "sampled_slots_checked": int(sample.size)}
 
 
@@ -928,6 +946,236 @@ def phase_serving_replan(torch, np, timer, tables, histories, served, async_stat
     return stats
 
 
+def phase_serving_tiers(torch, np, tables, histories, served, replan_stats) -> dict:
+    """Tiered hot/cold storage at dlrm-recross FULL width: the
+    serving-replan configuration and rotated stream with
+    ``tiers=TierConfig(capacity_frac=0.25)``.  Fails unless queries take
+    both routes, a barrier fetches tiles and the image depth equals the
+    capacity after every patch; drained rows are held against the
+    serving phase's and gather+sum, the fetched and sampled resident
+    slots against the host master image.  Times the host flush: the
+    gather from the master image, the float32 sums, the copy to the card
+    (CUDA events) and the host loads it feeds the tracker."""
+    from repro_torch.core import reduce_dense_oracle
+    from repro_torch.kernels import sharded as sharded_mod
+    from repro_torch.kernels.crossbar_reduce import crossbar_reduce_cuda
+    from repro_torch.serve import ReplanConfig, ShardedEmbeddingServer, TierConfig
+    from repro_torch.serve import sharded as server_mod
+
+    names = sorted(tables)
+    n_tab = len(names)
+    long_streams = served["long_streams"]
+    order = drift_stream(np, [(names[i % n_tab], long_streams[names[i % n_tab]][i // n_tab])
+                              for i in range(n_tab * REPLAN_PER_TABLE)], ROWS, DRIFT_SEED)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    server = ShardedEmbeddingServer(
+        tables, histories, num_shards=ASYNC_SHARDS, q_block=Q_BLOCK,
+        group_size=GROUP_SIZE, batch_size=BATCH_SIZE, flush_policy="owner-set",
+        owner_set_max=2, threaded=True, max_in_flight=2, device=DEVICE,
+        replan=ReplanConfig(**REPLAN), tiers=TierConfig(capacity_frac=TIER_FRAC),
+    )
+    plan_s = time.perf_counter() - t0
+    cap = server._capacity_tiles
+    image = server.shard_images
+    image_bytes = image.numel() * image.element_size()
+    if image.shape[1] != cap:
+        raise AssertionError(f"serving-tiers: image depth {image.shape[1]} at build, "
+                             f"capacity {cap}")
+    routed_hot = sum(server._residency.is_resident(n, np.asarray(q, dtype=np.int64))
+                     for n, q in order[: len(order) // 2])
+    log(f"serving-tiers: plan build {plan_s:.2f} s, capacity {cap} tiles a shard, image "
+        f"{tuple(image.shape)} = {image_bytes} B, host master {server._fused.nbytes} B, "
+        f"{routed_hot} of the first {len(order) // 2} queries resident at build")
+
+    # the host flush's parts (host clock; the copy by CUDA events on the
+    # server's stream), the patches' writes and the depth after each apply
+    timing = {"cold_rows_s": [], "gather_s": [], "sum_s": [], "copy": [], "loads_s": [],
+              "apply_s": [], "patch_gather_s": []}
+    written, depths, flush_sizes, forced = set(), [], [], [0]
+
+    def host_timed(key, fn):
+        def run(*args, **kw):
+            t = time.perf_counter()
+            out = fn(*args, **kw)
+            timing[key].append(time.perf_counter() - t)
+            return out
+        return run
+
+    def device_timed(key, fn):
+        def run(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            timing[key].append((start, end))
+            return out
+        return run
+
+    stage = sharded_mod.stage_patch_tiles
+
+    def recorded_stage(writes, *args, **kw):
+        written.update(s * 10**9 + slot for s, slot, _ in writes)
+        t = time.perf_counter()
+        out = stage(writes, *args, **kw)
+        timing["patch_gather_s"].append(time.perf_counter() - t)
+        return out
+
+    apply = server._apply_staged_patch
+
+    def checked_apply():
+        if server._staged is None:
+            return apply()
+        t = time.perf_counter()
+        apply()
+        timing["apply_s"].append(time.perf_counter() - t)
+        depths.append(int(server.shard_images.shape[1]))
+
+    cold_rows = host_timed("cold_rows_s", server._cold_rows)
+
+    def sized_cold_rows(entries):
+        flush_sizes.append(len(entries))
+        return cold_rows(entries)
+
+    flush_host = server._flush_host_queue
+
+    def counted_flush_host(**kw):
+        # the barrier's forced drain of a non-empty queue
+        forced[0] += int(kw.get("forced", False) and len(server._host_queue) > 0)
+        return flush_host(**kw)
+
+    server._apply_staged_patch = checked_apply
+    server._cold_rows = sized_cold_rows
+    server._flush_host_queue = counted_flush_host
+    residency = server._residency
+    residency.host_group_loads = host_timed("loads_s", residency.host_group_loads)
+    labels = ("p0", "p1")
+    for label in labels:
+        server.register_producer(label)
+    slices = {label: [order[i] for i in range(p, len(order), 2)]
+              for p, label in enumerate(labels)}
+    crossbar_reduce_cuda.launches = 0
+    patched_fns = (
+        mock.patch.object(sharded_mod, "stage_patch_tiles", recorded_stage),
+        mock.patch.object(server_mod, "gather_cold_rows",
+                          host_timed("gather_s", server_mod.gather_cold_rows)),
+        mock.patch.object(server_mod, "sum_cold_rows",
+                          host_timed("sum_s", server_mod.sum_cold_rows)),
+        mock.patch.object(server_mod, "_to_device",
+                          device_timed("copy", server_mod._to_device)),
+    )
+    t0 = time.perf_counter()
+    try:
+        with contextlib.ExitStack() as stack:
+            for fn in patched_fns:
+                stack.enter_context(fn)
+            _submit_from_producers(server, slices)
+            out = server.drain()
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = crossbar_reduce_cuda.launches
+        rep = server.report()
+        written = {(k // 10**9) * server.shard_images.shape[1] + k % 10**9 for k in written}
+        slots = check_image_slots(torch, np, server, written, np.random.default_rng(19),
+                                  tag="serving-tiers")
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        server.close()
+        # the wrappers close cycles through the server; break them so its
+        # image is freed when this phase returns
+        del server._apply_staged_patch, server._cold_rows, server._flush_host_queue
+        del residency.host_group_loads
+    s, ts = rep["serve"], rep["serve"]["tiers"]
+    if launches <= 0:
+        raise AssertionError("serving-tiers ran no crossbar kernel launch")
+    if ts["hot_queries"] <= 0 or ts["host_queries"] <= 0:
+        raise AssertionError(f"serving-tiers: {ts['hot_queries']} hot and "
+                             f"{ts['host_queries']} host queries; both routes must serve")
+    if ts["fetched_tiles"] <= 0:
+        raise AssertionError(f"serving-tiers: no barrier fetched a tile: {ts}, "
+                             f"{s['replans']} replans, {s['rebases']} rebases")
+    if (any(d != cap for d in depths) or server.shard_images.shape[1] != cap
+            or int(server.plan.local_num_tiles.max()) > cap):
+        raise AssertionError(f"serving-tiers: image depths {sorted(set(depths))} after "
+                             f"patches, capacity {cap}")
+
+    merged = merge_positions(order, names)
+    per_table = {n: [q for t, q in order if t == n] for n in names}
+    rows_global = served["out"]
+    err_global = 0.0
+    for n in names:
+        got = out.get(n)
+        if got is None or got.shape != (len(merged[n]), PADDED_DIM) or not torch.isfinite(got).all():
+            raise AssertionError(f"serving-tiers table {n}: bad output "
+                                 f"{None if got is None else tuple(got.shape)}")
+        pos = [j for j, k in enumerate(merged[n]) if k < STREAM_PER_TABLE]
+        want = rows_global[n][torch.tensor([merged[n][j] for j in pos], device=DEVICE)]
+        err_global = max(err_global, float((got[torch.tensor(pos, device=DEVICE)] - want)
+                                           .abs().max().item()))
+    if err_global > TOL["float32"]:
+        raise AssertionError(f"serving-tiers rows disagree with the global phase's: {err_global}")
+    pick = np.random.default_rng(23).choice(len(order), size=SAMPLE_ROWS, replace=False)
+    flat = [(n, j) for n in names for j in range(len(merged[n]))]
+    oracle_err = 0.0
+    for i in pick.tolist():
+        n, j = flat[i]
+        want = reduce_dense_oracle(tables[n], [per_table[n][merged[n][j]]])[0]
+        oracle_err = max(oracle_err, float((out[n][j] - want).abs().max().item()))
+    if oracle_err > TOL["float32"]:
+        raise AssertionError(f"serving-tiers rows disagree with gather+sum: {oracle_err}")
+
+    def ms(key):
+        return [t * 1e3 for t in timing[key]]
+
+    copy_ms = [a.elapsed_time(b) for a, b in timing["copy"]]
+    cold_ms = np.asarray(ms("cold_rows_s"))
+    tile_bytes = server._tile_bytes
+    pct = {k: {p: s[k][p] for p in ("p50", "p99")}
+           for k in ("submit_latency_s", "e2e_latency_s", "flush_latency_s")}
+    stats = {
+        "tables": n_tab, "rows": ROWS, "dim": PADDED_DIM, "shards": ASYNC_SHARDS,
+        "policy": "owner-set", "owner_set_max": 2, "threaded": True, "producers": 2,
+        "replan": REPLAN, "capacity_frac": TIER_FRAC, "capacity_tiles": cap,
+        "queries_per_table": REPLAN_PER_TABLE, "drift_from": len(order) // 2,
+        "plan_build_s": plan_s, "image_shape": list(image.shape), "image_bytes": image_bytes,
+        "serving_replan_image_shape": replan_stats["image_shape_at_build"],
+        "host_master_bytes": int(server._fused.nbytes), "max_memory_allocated": peak,
+        "resident_at_build_first_half": int(routed_hot),
+        "queries": ts["hot_queries"] + ts["host_queries"], "wall_s": wall,
+        "queries_per_s": (ts["hot_queries"] + ts["host_queries"]) / wall,
+        "replan_queries_per_s": replan_stats["queries_per_s"], **pct,
+        "replan_e2e_latency_s": replan_stats["e2e_latency_s"],
+        "hot_tier_hit_rate": ts["hot_tier_hit_rate"], "hot_queries": ts["hot_queries"],
+        "host_queries": ts["host_queries"], "host_flushes": ts["host_flushes"],
+        "host_deadline_flushes": ts["host_deadline_flushes"],
+        "host_barrier_flushes": forced[0],
+        "host_batch_flushes": ts["host_flushes"] - ts["host_deadline_flushes"] - forced[0],
+        "host_flush_queries_mean": float(np.mean(flush_sizes)) if flush_sizes else 0.0,
+        "fetched_tiles": ts["fetched_tiles"], "fetched_bytes": ts["paging_bytes"],
+        "evicted_tiles": ts["evicted_tiles"], "evicted_bytes": ts["evicted_tiles"] * tile_bytes,
+        "cold_groups_after": rep["tiers"]["cold_groups"],
+        "resident_groups_after": rep["tiers"]["resident_groups"],
+        "replans": s["replans"], "rebases": s["rebases"], "patched_tiles": s["patched_tiles"],
+        "barrier_flushes": s["barrier_flushes"], "batches": s["batches"],
+        "deadline_flushes": s["deadline_flushes"], "host_compile_s": s["host_compile_s"],
+        "depths_after_patches": sorted(set(depths)),
+        "patch_apply_s": timing["apply_s"], "patch_gather_s": timing["patch_gather_s"],
+        "host_rows_ms_p50": float(np.percentile(cold_ms, 50)) if cold_ms.size else 0.0,
+        "host_rows_ms_p99": float(np.percentile(cold_ms, 99)) if cold_ms.size else 0.0,
+        "host_rows_s_total": float(cold_ms.sum()) / 1e3,
+        "host_gather_s_total": sum(timing["gather_s"]),
+        "host_sum_s_total": sum(timing["sum_s"]),
+        "host_copy_ms_total": sum(copy_ms), "host_copies": len(copy_ms),
+        "host_loads_s_total": sum(timing["loads_s"]),
+        "kernel_launches": launches, **slots,
+        "max_abs_err_vs_global": err_global, "sampled_rows": SAMPLE_ROWS,
+        "sample_max_abs_err": oracle_err, "faults": s["faults"],
+    }
+    log("serving-tiers", json.dumps(stats))
+    return stats
+
+
 def _submit_in_turns(server, slices) -> None:
     """Each producer's ``[(table, query), ...]`` from its own thread, the
     threads taking strict turns one query at a time: the hand-off order,
@@ -1007,12 +1255,19 @@ def phase_async_bits(torch, np) -> dict:
     five setups (the two producers taking strict turns): each must equal
     the port's CPU server on the same configuration bit for bit, with the
     same replans and patched tiles, and at least one patch that copies
-    tiles."""
+    tiles.  Then the rotated stream under ``tiers=`` (a hot tier of half
+    the uncapped depth) in the same five setups: each must equal the
+    uncapped server's rows, gather+sum and the CPU tiered server, with
+    the same host queries and fetched and evicted tiles; and once more
+    (owner-set inline) with the first two patch applies failing at the
+    injector's patch seam."""
     from repro_torch.convert import tables_from_numpy
     from repro_torch.core import reduce_dense_oracle
     from repro_torch.data import zipf_queries
     from repro_torch.kernels.crossbar_reduce import crossbar_reduce_cuda
-    from repro_torch.serve import ReplanConfig, ShardedEmbeddingServer
+    from repro_torch.serve import (
+        FaultPlan, ReplanConfig, RetryPolicy, ShardedEmbeddingServer, TierConfig,
+    )
 
     rng = np.random.default_rng(99)
     names = ("a", "b")
@@ -1022,10 +1277,13 @@ def phase_async_bits(torch, np) -> dict:
     histories = {n: zipf_queries(BITS_ROWS, 2048, 12.0, seed=10 + i) for i, n in enumerate(names)}
     base = [("a" if i % 3 else "b", q)
             for i, q in enumerate(zipf_queries(BITS_ROWS, BITS_QUERIES, 12.0, seed=20))]
-    runs = {}
+    tier_keys = ("hot_queries", "host_queries", "host_flushes", "fetched_tiles",
+                 "evicted_tiles")
+    runs, uncapped = {}, {}
     launches = 0
-    for drift in (False, True):
-        stream = drift_stream(np, base, BITS_ROWS, DRIFT_SEED) if drift else base
+    patch_fault = ("owner-set/patch-fault", "owner-set", False)
+    for mode in ("plain", "replan", "tiers"):
+        stream = drift_stream(np, base, BITS_ROWS, DRIFT_SEED) if mode != "plain" else base
         per_table = {n: [q for t, q in stream if t == n] for n in names}
         oracle = {n: reduce_dense_oracle(tables[n], per_table[n]) for n in names}
         # the k-th query of a table goes to producer k % 2: the (local_seq,
@@ -1034,18 +1292,27 @@ def phase_async_bits(torch, np) -> dict:
         for t, q in stream:
             slices[f"p{count[t] % 2}"].append((t, q))
             count[t] += 1
-        kw = {"num_shards": ASYNC_SHARDS, "q_block": 4, "group_size": GROUP_SIZE,
-              "batch_size": 32}
-        if drift:
-            kw.update(batch_size_for_eq1=BITS_EQ1_BATCH, replan=ReplanConfig(**REPLAN))
-        submit = _submit_in_turns if drift else _submit_from_producers
-        for label, policy, threaded in BITS_SETUPS:
-            server = ShardedEmbeddingServer(tables, histories, flush_policy=policy,
-                                            threaded=threaded, device=DEVICE, **kw)
+        submit = _submit_in_turns if mode != "plain" else _submit_from_producers
+        setups = BITS_SETUPS + ((patch_fault,) if mode == "tiers" else ())
+        for label, policy, threaded in setups:
+            def build(device, table_set):
+                kw = {"num_shards": ASYNC_SHARDS, "q_block": 4, "group_size": GROUP_SIZE,
+                      "batch_size": 32}
+                if mode != "plain":
+                    kw.update(batch_size_for_eq1=BITS_EQ1_BATCH, replan=ReplanConfig(**REPLAN))
+                if mode == "tiers":
+                    kw["tiers"] = TierConfig(capacity_frac=TIER_BITS_FRAC)
+                if label == patch_fault[0]:
+                    kw.update(faults=FaultPlan([], seed=0).add("patch", tick=0, times=2),
+                              retry=RetryPolicy(patch_retries=2))
+                return ShardedEmbeddingServer(table_set, histories, flush_policy=policy,
+                                              threaded=threaded, device=device, **kw)
+
+            server = build(DEVICE, tables)
             crossbar_reduce_cuda.launches = 0
             out = serve_bits(torch, server, names, stream, slices, threaded, submit)
             launches += crossbar_reduce_cuda.launches
-            tag = f"{label}{'/replan' if drift else ''}"
+            tag = label if mode == "plain" else f"{label}/{mode}"
             for n in names:
                 if not torch.equal(out[n], oracle[n]):
                     bad = float((out[n] - oracle[n]).abs().max().item())
@@ -1053,28 +1320,147 @@ def phase_async_bits(torch, np) -> dict:
                                          f"to gather+sum (max_abs_err {bad})")
             st = server.stats.summary()
             runs[tag] = {"flushes": st["batches"]}
-            if not drift:
+            if mode == "plain":
                 continue
-            cpu = ShardedEmbeddingServer(cpu_tables, histories, flush_policy=policy,
-                                         threaded=threaded, device="cpu", **kw)
+            if mode == "replan":
+                uncapped[label] = out
+            elif label in uncapped:
+                for n in names:
+                    if not torch.equal(out[n], uncapped[label][n]):
+                        raise AssertionError(f"tier bits: {tag} table {n} differs from the "
+                                             f"uncapped server's")
+            cpu = build("cpu", cpu_tables)
             cpu_out = serve_bits(torch, cpu, names, stream, slices, threaded, submit)
             ct = cpu.stats.summary()
             counts = {k: st[k] for k in ("replans", "rebases", "patched_tiles")}
-            if counts != {k: ct[k] for k in counts}:
-                raise AssertionError(f"replan bits: {tag} patched unlike the CPU server: "
-                                     f"{counts} against {ct}")
-            if st["patched_tiles"] <= 0:
+            want = {k: ct[k] for k in counts}
+            if mode == "tiers":
+                counts.update({k: st["tiers"][k] for k in tier_keys},
+                              patch_failures=st["faults"]["patch_failures"])
+                want.update({k: ct["tiers"][k] for k in tier_keys},
+                            patch_failures=ct["faults"]["patch_failures"])
+            if counts != want:
+                raise AssertionError(f"{mode} bits: {tag} counted unlike the CPU server: "
+                                     f"{counts} against {want}")
+            if mode == "replan" and st["patched_tiles"] <= 0:
                 raise AssertionError(f"replan bits: {tag} applied no patch that copies tiles")
+            if mode == "tiers":
+                ts = st["tiers"]
+                if min(ts["hot_queries"], ts["host_queries"], ts["fetched_tiles"]) <= 0:
+                    raise AssertionError(f"tier bits: {tag} needs hot and host queries and a "
+                                         f"fetch: {ts}")
+                if server.shard_images.shape[1] != server._capacity_tiles:
+                    raise AssertionError(f"tier bits: {tag} image depth left its capacity")
+                if label == patch_fault[0] and st["faults"]["patch_failures"] != 2:
+                    raise AssertionError(f"tier bits: {tag} saw "
+                                         f"{st['faults']['patch_failures']} patch failures, not 2")
             for n in names:
                 if not torch.equal(out[n].cpu(), cpu_out[n]):
-                    raise AssertionError(f"replan bits: {tag} table {n} differs from the "
+                    raise AssertionError(f"{mode} bits: {tag} table {n} differs from the "
                                          f"CPU server's")
             if not torch.equal(server.shard_images.cpu(), cpu.shard_images):
-                raise AssertionError(f"replan bits: {tag} image differs from the CPU server's")
+                raise AssertionError(f"{mode} bits: {tag} image differs from the CPU server's")
             runs[tag].update(counts, capacity=int(server.shard_images.shape[1]))
     stats = {"rows": BITS_ROWS, "queries": len(base), "shards": ASYNC_SHARDS,
-             "runs": runs, "kernel_launches": launches, "bit_identical": True}
+             "tier_capacity_frac": TIER_BITS_FRAC, "runs": runs,
+             "kernel_launches": launches, "bit_identical": True}
     log("serving-async-bits", json.dumps(stats))
+    return stats
+
+
+def phase_chaos_bits(torch, np) -> dict:
+    """``tests/test_faults.py:466``'s threaded chaos replay on the card:
+    two transient compile faults, a device fault, a poisoned query
+    ``("a", 5)`` and a flush hung past the 0.2 s watchdog.  The hang must
+    raise ``FlushTimeout`` (the card requeues it; only a CPU server
+    degrades it) and a later drain must return every row; the rows must
+    equal gather+sum minus exactly the offender and the CPU server's
+    rows, with the CPU server's retries and quarantined keys.  Then the
+    same replay with a 0.05 s hang, which must recover with no timeout."""
+    from repro_torch.convert import tables_from_numpy
+    from repro_torch.core import reduce_dense_oracle
+    from repro_torch.data import zipf_queries
+    from repro_torch.kernels.crossbar_reduce import crossbar_reduce_cuda
+    from repro_torch.serve import FaultPlan, FlushTimeout, RetryPolicy, ShardedEmbeddingServer
+
+    host = {n: np.random.default_rng(seed).integers(-8, 9, size=(CHAOS_ROWS, PADDED_DIM))
+            .astype(np.float32) for n, seed in (("a", 11), ("b", 12))}
+    histories = {"a": zipf_queries(CHAOS_ROWS, 48, 5.0, seed=13),
+                 "b": zipf_queries(CHAOS_ROWS, 48, 5.0, seed=14)}
+    streams = {"a": zipf_queries(CHAOS_ROWS, 20, 5.0, seed=15),
+               "b": zipf_queries(CHAOS_ROWS, 12, 5.0, seed=16)}
+    replay = [("a", q) for q in streams["a"]] + [("b", q) for q in streams["b"]]
+    offender = ("a", 5)
+
+    def run(device, hang_s):
+        plan = (FaultPlan([], seed=3).add("compile", tick=0, times=2).add("device", tick=2)
+                .add("poison", table=offender[0], seq=offender[1])
+                .add("hang", tick=4, hang_s=hang_s))
+        server = ShardedEmbeddingServer(
+            tables_from_numpy(host, device), histories, num_shards=2, q_block=4,
+            group_size=16, batch_size=4, flush_policy="per-shard", threaded=True,
+            retry=RetryPolicy(max_retries=3, watchdog_s=0.2 if hang_s > 1 else 5.0,
+                              backoff_base=1e-4, backoff_max=1e-3),
+            faults=plan, device=device)
+        raised = {"submit": 0, "drain": 0}
+        try:
+            for name, q in replay:
+                while True:
+                    try:
+                        # a threaded submit raises a stashed driver error
+                        # before it takes the query: submit it again
+                        server.submit(name, q)
+                        break
+                    except FlushTimeout:
+                        raised["submit"] += 1
+            while True:
+                try:
+                    out = server.drain()
+                    break
+                except FlushTimeout:
+                    raised["drain"] += 1
+        finally:
+            server.close()
+        return server, out, raised
+
+    stats = {}
+    for hang_s in (999.0, 0.05):
+        crossbar_reduce_cuda.launches = 0
+        card, out, raised = run(DEVICE, hang_s)
+        launches = crossbar_reduce_cuda.launches
+        cpu, cpu_out, cpu_raised = run("cpu", hang_s)
+        led, cled = card.stats.ledger, cpu.stats.ledger
+        tag = f"chaos bits (hang {hang_s} s)"
+        for n in host:
+            keep = [q for i, q in enumerate(streams[n]) if (n, i) != offender]
+            want = reduce_dense_oracle(tables_from_numpy({n: host[n]}, DEVICE)[n], keep)
+            if not torch.equal(out[n], want) or not torch.equal(out[n].cpu(), cpu_out[n]):
+                raise AssertionError(f"{tag}: table {n} differs from gather+sum minus the "
+                                     f"offender or from the CPU server")
+        if led.quarantined_keys() != [offender] or cled.quarantined_keys() != [offender]:
+            raise AssertionError(f"{tag}: quarantined {led.quarantined_keys()}, CPU "
+                                 f"{cled.quarantined_keys()}")
+        if led.retries != cled.retries or led.retries <= 0:
+            raise AssertionError(f"{tag}: {led.retries} retries, CPU {cled.retries}")
+        timeouts = raised["submit"] + raised["drain"]
+        if hang_s > 1:
+            if timeouts < 1 or led.timed_out_flushes < 1 or led.degraded_flushes != 0:
+                raise AssertionError(f"{tag}: the hang raised {timeouts} times, "
+                                     f"{led.timed_out_flushes} timed out, "
+                                     f"{led.degraded_flushes} degraded")
+            if cpu_raised != {"submit": 0, "drain": 0} or cled.degraded_flushes < 1:
+                raise AssertionError(f"{tag}: the CPU server did not degrade the hang")
+        elif timeouts or led.timed_out_flushes or cled.timed_out_flushes:
+            raise AssertionError(f"{tag}: a short hang timed out")
+        stats[f"hang_{hang_s}"] = {
+            "flush_timeouts_raised": raised, "timed_out_flushes": led.timed_out_flushes,
+            "requeues": card.scheduler.requeues, "retries": led.retries,
+            "cpu_retries": cled.retries, "bisections": led.bisections,
+            "quarantined": [list(k) for k in led.quarantined_keys()],
+            "cpu_degraded_flushes": cled.degraded_flushes,
+            "injected": card.report()["faults"]["injected"], "kernel_launches": launches,
+        }
+    log("chaos-bits", json.dumps(stats))
     return stats
 
 
@@ -1793,9 +2179,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     serving_replan = phase_serving_replan(torch, np, timer, tables, histories, served,
                                           serving_async)
+    torch.cuda.empty_cache()
+    serving_tiers = phase_serving_tiers(torch, np, tables, histories, served, serving_replan)
     del served
     torch.cuda.empty_cache()
     phase_async_bits(torch, np)
+    phase_chaos_bits(torch, np)
     torch.cuda.empty_cache()
     flat = phase_flat(torch, timer, server, tables, streams)
     eb_row = phase_embedding_bag(torch, timer)
@@ -1810,11 +2199,13 @@ def main() -> int:
 
     crossbar_src = "src/repro_torch/kernels/csrc/crossbar_reduce.cu"
     kernels = [
-        # launches over the serving, serving-async and serving-replan phases
+        # launches over the serving, serving-async, serving-replan and
+        # serving-tiers phases
         kernel_entry("crossbar_reduce_blocked", crossbar_src,
                      "src/repro/kernels/crossbar_reduce.py:103",
                      serving["kernel_launches"] + serving_async["kernel_launches"]
-                     + serving_replan["kernel_launches"], serving_row),
+                     + serving_replan["kernel_launches"] + serving_tiers["kernel_launches"],
+                     serving_row),
         # launches over the flat-op and DLRM phases
         kernel_entry("crossbar_reduce_flat", crossbar_src,
                      "src/repro/kernels/crossbar_reduce.py:54",

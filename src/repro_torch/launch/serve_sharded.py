@@ -7,7 +7,12 @@ shard loop), drives a stream of per-table Zipf queries through
 and one final ``drain``) and prints the report as JSON.  With
 ``--drift`` every row id of the stream's tail is remapped through a fixed
 permutation (a hot-set rotation the offline plan never saw) and the
-server replans online (``replan=``).
+server replans online (``replan=``).  With ``--capacity-frac`` (or
+``--capacity-tiles``) the device holds only that share of the image as a
+hot tier; cold queries take the host gather+sum and drift pages groups
+in and out (``tiers=``).  ``--inject`` replays a seeded fault schedule
+(``faults=``, the reference's plan for the same seed) against the
+self-healing policy.
 
 Usage::
 
@@ -19,12 +24,19 @@ Usage::
     PYTHONPATH=src python -m repro_torch.launch.serve_sharded --device cpu \
         --shards 2 --tables 2 --rows 512 --history 512 --requests 384 \
         --batch-size 32 --drift --replan-min-queries 32 --replan-half-life 2
+    PYTHONPATH=src python -m repro_torch.launch.serve_sharded --device cpu \
+        --flush-policy deadline --capacity-frac 0.25 --drift
+    PYTHONPATH=src python -m repro_torch.launch.serve_sharded --device cpu \
+        --flush-policy per-shard --threaded \
+        --inject compile:2,device:1,poison:1,hang:1 --inject-seed 0 --watchdog 2.0
 
 The device defaults to ``cuda``; there is no fallback to the CPU, which
 runs the kernels' plain versions only when asked for with ``--device cpu``.
+On the card an injected hang past ``--watchdog`` raises ``FlushTimeout``
+(its batch requeued); only ``--device cpu`` degrades it to the host.
 The run fails (non-zero exit) if a producer thread raised or the server
-quarantined any query.  The module is import-safe: arguments are parsed
-only under ``__main__``.
+quarantined a query that the fault plan did not poison.  The module is
+import-safe: arguments are parsed only under ``__main__``.
 """
 
 from __future__ import annotations
@@ -101,7 +113,68 @@ def parse_args(argv=None):
     ap.add_argument("--replan-min-queries", type=int, default=64)
     ap.add_argument("--slack-tiles", type=int, default=8,
                     help="per-shard zero-tile image headroom for promotions")
+    ap.add_argument("--capacity-frac", type=float, default=None,
+                    help="tiered storage (DESIGN.md §9): cap the per-shard "
+                         "hot-tier image at this fraction of what an uncapped "
+                         "plan needs; cold queries take the host gather+sum "
+                         "and drift pages groups in and out at barriers")
+    ap.add_argument("--capacity-tiles", type=int, default=None,
+                    help="absolute per-shard hot-tier budget in tiles "
+                         "(instead of --capacity-frac)")
+    ap.add_argument("--tier-hysteresis", type=float, default=1.5,
+                    help="load ratio a cold group must beat over its eviction "
+                         "victim to page in (>= 1)")
+    ap.add_argument("--host-batch", type=int, default=None,
+                    help="cold queries buffered before a host flush "
+                         "(default: --batch-size)")
+    ap.add_argument("--host-deadline", type=int, default=None,
+                    help="max submissions a queued cold query waits before a "
+                         "forced host flush (default: 4x host batch)")
+    ap.add_argument("--inject", default=None, metavar="KIND:N[,KIND:N...]",
+                    help="chaos replay (DESIGN.md §8): a seeded fault schedule, "
+                         "e.g. 'compile:2,device:1,poison:2,hang:1'.  Kinds: "
+                         "compile (transient host-compile failure), device "
+                         "(fault at dispatch), device-late (fault at retire), "
+                         "hang (the flush never reports ready; pair with "
+                         "--watchdog), poison (a (table, seq) query that fails "
+                         "every batch holding it until bisection quarantines "
+                         "it), patch (the staged plan patch fails to apply)")
+    ap.add_argument("--inject-seed", type=int, default=0,
+                    help="fault-plan draw and retry-jitter seed")
+    ap.add_argument("--inject-hang-s", type=float, default=None,
+                    help="simulated duration of injected hangs (default: "
+                         "forever, the watchdog's job)")
     return ap.parse_args(argv)
+
+
+def build_fault_plan(args, table_names, requests):
+    """``--inject 'compile:2,poison:1'`` → the seeded FaultPlan the
+    reference's launcher draws for the same arguments (None without
+    ``--inject``)."""
+    if not args.inject:
+        return None
+    from repro_torch.serve.faults import FaultPlan
+
+    counts = {}
+    for part in args.inject.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        kind, _, n = part.partition(":")
+        counts[kind.strip()] = int(n) if n else 1
+    per_table = max(1, requests // max(1, len(table_names)))
+    producers = (
+        tuple(f"p{i}" for i in range(args.producers))
+        if args.producers > 1 else ()
+    )
+    return FaultPlan.random(
+        args.inject_seed, counts,
+        horizon=max(4, requests // max(1, args.batch_size)),
+        tables=tuple(table_names),
+        max_seq=max(1, per_table // max(1, args.producers)),
+        hang_s=args.inject_hang_s,
+        producers=producers,
+    )
 
 
 def main(args) -> dict:
@@ -109,7 +182,12 @@ def main(args) -> dict:
 
     from repro_torch.convert import tables_from_numpy
     from repro_torch.data import zipf_queries
-    from repro_torch.serve import ReplanConfig, RetryPolicy, ShardedEmbeddingServer
+    from repro_torch.serve import (
+        ReplanConfig,
+        RetryPolicy,
+        ShardedEmbeddingServer,
+        TierConfig,
+    )
 
     rng = np.random.default_rng(0)
     tables = tables_from_numpy({
@@ -131,13 +209,23 @@ def main(args) -> dict:
         owner_set_max=args.owner_set_max,
         max_in_flight=args.max_in_flight,
         threaded=args.threaded,
-        retry=RetryPolicy(max_retries=args.max_retries, watchdog_s=args.watchdog),
+        retry=RetryPolicy(max_retries=args.max_retries, watchdog_s=args.watchdog,
+                          seed=args.inject_seed),
         replan=ReplanConfig(
             threshold=args.replan_threshold,
             half_life=args.replan_half_life,
             min_queries=args.replan_min_queries,
             slack_tiles=args.slack_tiles,
         ) if args.drift else None,
+        tiers=TierConfig(
+            capacity_tiles=args.capacity_tiles,
+            capacity_frac=args.capacity_frac,
+            hysteresis=args.tier_hysteresis,
+            host_batch=args.host_batch,
+            host_deadline=args.host_deadline,
+        ) if args.capacity_frac is not None or args.capacity_tiles is not None
+        else None,
+        faults=build_fault_plan(args, list(tables), args.requests),
     )
     stream = zipf_queries(args.rows, args.requests, args.mean_bag, seed=1234)
     if args.drift:
@@ -210,6 +298,9 @@ def main(args) -> dict:
 if __name__ == "__main__":
     report = main(parse_args())
     print(json.dumps(report, indent=1, default=str))
-    quarantined = report["serve"]["faults"]["quarantined"]
-    if quarantined:
-        raise SystemExit(f"{len(quarantined)} queries quarantined: {quarantined}")
+    poisoned = report.get("faults", {}).get("plan", {}).get("poisoned", [])
+    unplanned = [q for q in report["serve"]["faults"]["quarantined"]
+                 if q[:2] not in poisoned]
+    if unplanned:
+        raise SystemExit(f"{len(unplanned)} queries quarantined without a "
+                         f"planned poison: {unplanned}")

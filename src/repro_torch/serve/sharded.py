@@ -56,13 +56,30 @@ flush (``"global"``) or pipeline barrier (async policies): the placement
 arrays swap and only the patch's tiles are copied from the host master
 image into the image stack (:func:`repro_torch.kernels.sharded.
 patch_shard_images`, in place, on the server's stream).  Two deliberate
-differences from the reference: only a server with ``replan=`` keeps the
-host master image (the reference keeps it on every server), and the
-patch writes the image in place.
+differences from the reference: only a server with ``replan=`` (which
+``tiers=`` implies) keeps the host master image (the reference keeps it
+on every server), and the patch writes the image in place.
 
-Not ported yet, and refused with ``NotImplementedError`` naming the slice
-that brings them: tiered storage and fault injection (tiers and faults
-slice), and ``mesh=`` (``torch.distributed`` slice).
+**Tiered storage** (``tiers=``, DESIGN.md §9): the image stack becomes a
+hot tier of fixed depth (a fraction of what an uncapped plan needs)
+over the host master image.  Each submission is routed by residency
+alone: a query touching a cold group waits in a deadline-batched host
+queue, whose flush sums each query's distinct rows from the master
+image in float32, copies them to the card in one pinned non-blocking
+copy on the server's stream, and stores them beside the hot rows, so
+:meth:`~ShardedEmbeddingServer.drain` merges both on the card.  The
+host loads feed the drift tracker, and paging patches (``fetch_dma``)
+swap groups in and out at barriers.
+
+**Fault injection** (``faults=``, DESIGN.md §8): a seeded
+:class:`~repro_torch.serve.faults.FaultPlan` fires at the compile,
+dispatch, retire and patch-apply seams; a simulated hang keeps a flush
+"not ready" for its duration.  A hung flush on the card is requeued and
+raises :class:`~repro_torch.serve.faults.FlushTimeout`; only a CPU
+server degrades it to the host.
+
+Not ported yet, and refused with ``NotImplementedError``: ``mesh=``
+(``torch.distributed`` slice).
 """
 
 from __future__ import annotations
@@ -70,6 +87,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import math
 import queue
 import threading
 import time
@@ -83,6 +101,7 @@ from repro_torch.core.grouping import correlation_aware_grouping
 from repro_torch.core.mapping import build_layout
 from repro_torch.core.reduction import (
     CompiledQueries,
+    _to_device,
     compile_queries,
     concat_compiled_queries,
     offset_compiled_queries,
@@ -106,12 +125,20 @@ from repro_torch.kernels.sharded import (
 from repro_torch.serve.drift import DriftTracker, LoadObservationCache, ReplanConfig
 from repro_torch.serve.faults import (
     ErrorLedger,
+    FaultInjector,
     FlushTimeout,
     RetryPolicy,
     latency_percentiles,
 )
 from repro_torch.serve.producers import ProducerRegistry
 from repro_torch.serve.scheduler import FlushPolicy, FlushScheduler
+from repro_torch.serve.tiers import (
+    HostFetchQueue,
+    ResidencyIndex,
+    TierConfig,
+    gather_cold_rows,
+    sum_cold_rows,
+)
 
 
 @dataclasses.dataclass
@@ -135,6 +162,8 @@ class _InFlight:
     entries: Optional[List[tuple]] = None  # raw (table, seq, query) triples
     participants: Optional[List[int]] = None
     t_dispatch: float = 0.0                # kernel dispatch (perf_counter)
+    # injected hang: not ready until hang_s after dispatch (inf = never)
+    hang_s: Optional[float] = None
 
 
 #: bound of the driver-failure stash (first-in surfaces first; overflow
@@ -152,8 +181,9 @@ class ShardedServeStats:
     flush was still running on the card) over ``host_compile_s``.
     Latency samples are kept raw (one float per flush / per submit / per
     async query) so :meth:`summary` can report percentiles.  The tier
-    counters keep the reference's schema and stay zero until the tiers
-    slice is ported (``load_obs_*`` count the drift observation's memo).
+    counters count a tiered server's hot/host routing, host flushes and
+    paging (zero without ``tiers=``); ``load_obs_*`` count the drift
+    observation's memo.
     """
 
     num_shards: int
@@ -186,7 +216,7 @@ class ShardedServeStats:
     patched_tiles: int = 0                 # Σ tiles copied by applied patches
     promoted_groups: int = 0
     demoted_groups: int = 0
-    # ---- tiered host/device storage (DESIGN.md §9; tiers slice) ----
+    # ---- tiered host/device storage (DESIGN.md §9) ----
     hot_queries: int = 0
     host_queries: int = 0
     host_flushes: int = 0
@@ -303,8 +333,8 @@ class ShardedServeStats:
         }
 
     def tier_summary(self) -> Dict[str, object]:
-        """Hot-tier metrics under the reference's keys (all-resident
-        until the tiers slice is ported)."""
+        """Hot-tier metrics under the reference's keys (an untiered
+        server reads as all-resident)."""
         routed = self.hot_queries + self.host_queries
         return {
             "hot_queries": self.hot_queries,
@@ -351,8 +381,9 @@ class ShardedEmbeddingServer:
         JAX side's arrays).  The image keeps their dtype.  A CPU server
         under an async policy keeps a host copy of each (float32 for
         bf16) for the watchdog's degrade path; a CUDA server keeps none.
-        With ``replan=`` the server also keeps the fused host master
-        image (float32 for bf16) its patches copy tiles from.
+        With ``replan=`` (or ``tiers=``) the server also keeps the fused
+        host master image (float32 for bf16) its patches copy tiles from
+        and its cold tier reads rows from.
       histories: ``{name: ragged lookup history}`` driving the offline
         pipeline (grouping + Eq.-1 replication) per table.
       num_shards: shards to plan for; emulated on one device.
@@ -381,9 +412,18 @@ class ShardedEmbeddingServer:
         RetryPolicy`; ``None`` = defaults, healing on, watchdog off).
       replan: optional :class:`~repro_torch.serve.drift.ReplanConfig`
         enabling drift-triggered incremental replanning (DESIGN.md §6).
-      mesh, tiers, faults: the reference server's other modes; anything
-        but ``None`` raises ``NotImplementedError`` naming the slice that
-        ports it.
+      tiers: optional :class:`~repro_torch.serve.tiers.TierConfig`
+        (DESIGN.md §9): the image stack becomes a hot tier of fixed
+        depth, cold queries take the host path over the master image,
+        and drift pages groups in and out at barriers.  Implies a
+        default ``ReplanConfig`` when ``replan`` is not given;
+        ``replan.slack_tiles`` / ``shrink_streak`` are ignored (the
+        depth IS the capacity).
+      faults: optional :class:`~repro_torch.serve.faults.FaultPlan` or
+        :class:`~repro_torch.serve.faults.FaultInjector` (DESIGN.md §8)
+        consulted at the compile, dispatch, retire and patch seams.
+      mesh: one shard per device; not ported yet, anything but ``None``
+        raises ``NotImplementedError``.
     """
 
     def __init__(
@@ -409,13 +449,11 @@ class ShardedEmbeddingServer:
         threaded: bool = False,
         retry: RetryPolicy | None = None,
         replan: ReplanConfig | None = None,
-        tiers=None,
+        tiers: TierConfig | None = None,
         faults=None,
     ):
         if mesh is not None:
             raise _not_ported("mesh= (one shard per device)", "torch.distributed")
-        if tiers is not None or faults is not None:
-            raise _not_ported("tiers= / faults=", "tiers and faults")
         if set(tables) != set(histories):
             raise ValueError("tables and histories must cover the same names")
         if not tables:
@@ -475,12 +513,36 @@ class ShardedEmbeddingServer:
         if len(dims) != 1:
             raise ValueError("fused serving requires a uniform embedding dim")
         self.dim = dims.pop()
+        self.tiers = tiers
+        if tiers is not None and replan is None:
+            # paging rides the drift tracker
+            replan = ReplanConfig()
+        self._capacity_tiles: Optional[int] = None
+        if tiers is not None:
+            # the budget is a fraction of what an UNCAPPED plan of the
+            # same tables needs per shard
+            uncapped = plan_shards(
+                self.layouts, plans, num_shards, names=self.names,
+                group_freqs=gfreqs,
+            )
+            self._capacity_tiles = tiers.resolve_capacity(uncapped.max_local_tiles)
+            del uncapped
         self.plan: ShardPlan = plan_shards(
             self.layouts, plans, num_shards, names=self.names, group_freqs=gfreqs,
+            capacity_tiles=self._capacity_tiles,
         )
         fused = build_fused_image(self.layouts, [host[n] for n in self.names])
         images = self.plan.build_shard_images(fused)
-        if replan is not None and replan.slack_tiles > 0:
+        if self._capacity_tiles is not None:
+            # the hot tier is FIXED at its budget: every free slot is
+            # fetchable from the start
+            extra = self._capacity_tiles - images.shape[1]
+            if extra > 0:
+                pad = np.zeros(
+                    (num_shards, extra) + images.shape[2:], dtype=images.dtype
+                )
+                images = np.concatenate([images, pad], axis=1)
+        elif replan is not None and replan.slack_tiles > 0:
             # zero-tile headroom so early promotions fill slack instead
             # of growing (reallocating) the image stack on the device
             pad = np.zeros(
@@ -499,8 +561,9 @@ class ShardedEmbeddingServer:
         self._eq1_batch = (
             replan.eq1_batch if replan and replan.eq1_batch else eq1_batch
         )
-        # the host master image, the source of every patch's tiles: kept
-        # only with replan= (the reference keeps it on every server)
+        # the host master image, the source of every patch's tiles and of
+        # the cold tier's rows: kept only with replan= (tiers= implies
+        # it; the reference keeps it on every server)
         self._fused: Optional[np.ndarray] = fused if replan is not None else None
         del fused
         #: host→device bytes of one fused tile, in the image dtype
@@ -531,9 +594,32 @@ class ShardedEmbeddingServer:
         self._load_obs: Optional[LoadObservationCache] = (
             LoadObservationCache() if replan is not None else None
         )
-        # patch-apply failures in a row (the faults slice's injector
-        # branch of _apply_staged_patch counts here)
+        # patch-apply failures in a row: _apply_staged_patch counts here
+        # and drops the patch past retry.patch_retries
         self._patch_fail_streak = 0
+        # ---- tiered storage state (DESIGN.md §9); None when untiered --
+        self._residency: Optional[ResidencyIndex] = None
+        self._host_queue: Optional[HostFetchQueue] = None
+        self._tick = 0
+        if tiers is not None:
+            name_to_layout = dict(zip(self.names, self.layouts))
+            self._residency = ResidencyIndex(self.plan, {
+                seg.name: np.asarray(
+                    name_to_layout[seg.name].group_of, dtype=np.int64
+                ) + seg.group_offset
+                for seg in self.plan.tables
+            })
+            hb = tiers.host_batch or batch_size
+            self._host_queue = HostFetchQueue(hb, tiers.host_deadline or 4 * hb)
+            # a cold row's home in the master image: replica 0 of its
+            # fused group (group_copies is frozen, so is this) at its slot
+            self._group_tile0 = np.concatenate(
+                [[0], np.cumsum(self.plan.group_copies)[:-1]]
+            ).astype(np.int64)
+            self._slot_of = {
+                n: np.asarray(l.slot_of, dtype=np.int64)
+                for n, l in zip(self.names, self.layouts)
+            }
         self.stats = ShardedServeStats(
             num_shards=num_shards, q_block=q_block, policy=self.policy.kind
         )
@@ -561,6 +647,11 @@ class ShardedEmbeddingServer:
             n: [] for n in self.names
         }
         self._retry_rng = np.random.default_rng(self.retry.seed)
+        self._injector = FaultInjector.parse(faults)
+        if self._injector is not None:
+            # poison keying speaks (table, producer, LOCAL seq): the
+            # injector decodes the packed ids the engine hands it
+            self._injector.bind_decoder(self._registry.decode)
         # ---- thread driver state (DESIGN.md §7.2); started lazily on
         # the first submit under a threaded policy ----
         self._handoff: Optional[queue.Queue] = None
@@ -625,6 +716,9 @@ class ShardedEmbeddingServer:
         host (``replan=``), then the call waits for the kernel.  On an
         async server this is a barrier first: pending and in-flight work
         drains, and a staged patch applies, before the batch compiles.
+        On a tiered server the queries that touch a cold group are split
+        off against the post-patch residency and summed on the host from
+        the master image; hot and cold rows are assembled on the card.
 
         Args:
           queries_by_table: ``{table name: ragged row-id queries}``;
@@ -653,27 +747,105 @@ class ShardedEmbeddingServer:
         else:
             self._apply_staged_patch()
         queries_of = {n: list(queries_by_table[n]) for n in served}
-        with self._on_stream():
-            tc = time.perf_counter()
-            host_cq, sbq, spans = self._compile_batch(served, queries_of)
-            # a synchronous compile sits on the serving critical path
-            self.stats.record_compile(time.perf_counter() - tc, hidden=False)
-            outs = crossbar_reduce_tables(
-                self.shard_images, sbq, spans,
-                combine_chunks=self.combine_chunks,
-                dynamic_switch=self.dynamic_switch,
-            )
-            event = self._record_event()
-        # the kernels are dispatched but not waited for: the drift
-        # observation is host work on the CPU compile and overlaps them
-        self._observe_and_stage(host_cq, sum(len(queries_of[n]) for n in served))
+        # residency split (DESIGN.md §9), against the post-patch plan: a
+        # compiled batch may never reference a cold tile
+        cold_of: Dict[str, List[int]] = {}
+        if self._residency is not None:
+            for n in served:
+                cold = [i for i, q in enumerate(queries_of[n])
+                        if not self._residency.is_resident(
+                            n, np.asarray(list(q), dtype=np.int64))]
+                if cold:
+                    cold_of[n] = cold
+            cold_entries = [(n, i, queries_of[n][i])
+                            for n in cold_of for i in cold_of[n]]
+            if cold_entries:
+                self.stats.host_queries += len(cold_entries)
+                self.stats.sync_cold_batches += 1
+                if self.tracker is not None:
+                    # cold queries never compile; their loads must feed
+                    # the tracker or a cold group can never warm up
+                    self.tracker.observe(
+                        self._residency.host_group_loads(cold_entries),
+                        len(cold_entries),
+                    )
+            self.stats.hot_queries += sum(
+                len(queries_of[n]) for n in served
+            ) - len(cold_entries)
+        hot_of = {}
+        for n in served:
+            cold = set(cold_of.get(n, ()))
+            hot_of[n] = [q for i, q in enumerate(queries_of[n]) if i not in cold]
+        served_dev = [n for n in served if hot_of[n]]
+        n_hot = sum(len(hot_of[n]) for n in served_dev)
+        outs, sbq, event = [], None, None
+        if served_dev:
+            with self._on_stream():
+                tc = time.perf_counter()
+                host_cq, sbq, spans = self._compile_batch(
+                    served_dev, {n: hot_of[n] for n in served_dev}
+                )
+                # a synchronous compile sits on the serving critical path
+                self.stats.record_compile(time.perf_counter() - tc, hidden=False)
+                outs = crossbar_reduce_tables(
+                    self.shard_images, sbq, spans,
+                    combine_chunks=self.combine_chunks,
+                    dynamic_switch=self.dynamic_switch,
+                )
+                event = self._record_event()
+            # the kernels are dispatched but not waited for: the drift
+            # observation is host work on the CPU compile and overlaps them
+            self._observe_and_stage(host_cq, n_hot)
+        elif self.tracker is not None:
+            # an all-cold batch still observed loads above: give the drift
+            # statistic its chance to stage a paging patch
+            self._maybe_stage()
+        out = dict(zip(served_dev, outs))
+        if cold_of:
+            out.update(self._assemble(queries_of, cold_of, out))
         if event is not None:
             event.synchronize()
-        self.stats.record(
-            sbq, self.dim, time.perf_counter() - t0,
-            sum(len(queries_of[n]) for n in served),
-        )
-        return dict(zip(served, outs))
+        if sbq is not None:
+            self.stats.record(sbq, self.dim, time.perf_counter() - t0, n_hot)
+        return out
+
+    def _assemble(self, queries_of, cold_of, hot_out) -> Dict[str, torch.Tensor]:
+        """The sync path's tables that had cold queries: their host rows
+        (one copy to the card) and hot rows placed by position on the
+        card, in the server's dtype."""
+        entries = [(n, i, queries_of[n][i]) for n in cold_of for i in cold_of[n]]
+        cold_rows = self._cold_rows(entries)
+        out, start = {}, 0
+        with self._on_stream():
+            for n, cold in cold_of.items():
+                full = torch.empty(
+                    (len(queries_of[n]), self.dim), dtype=self.dtype, device=self.device
+                )
+                full.index_copy_(0, _to_device(np.asarray(cold), self.device),
+                                 cold_rows[start:start + len(cold)])
+                start += len(cold)
+                if n in hot_out:
+                    hot = np.setdiff1d(np.arange(len(queries_of[n])), cold)
+                    full.index_copy_(0, _to_device(hot, self.device), hot_out[n])
+                out[n] = full
+        return out
+
+    def _cold_rows(self, entries) -> torch.Tensor:
+        """The cold tier's compute: each ``(table, seq, query)`` entry's
+        distinct rows read from the host master image, summed in float32
+        and copied to the server's device in one pinned, non-blocking
+        copy on its stream (rounded once to the server's dtype there).
+        Returns ``(len(entries), dim)`` rows in entry order."""
+        tiles, slots, lengths = [], [], []
+        for table, _seq, query in entries:
+            ids = np.unique(np.asarray(list(query), dtype=np.int64))
+            tiles.append(self._group_tile0[self._residency.fused_groups(table, ids)])
+            slots.append(self._slot_of[table][ids])
+            lengths.append(ids.size)
+        rows = gather_cold_rows(self._fused, np.concatenate(tiles), np.concatenate(slots))
+        sums = sum_cold_rows(rows, np.asarray(lengths, dtype=np.int64))
+        with self._on_stream():
+            return _to_device(sums, self.device, self.dtype)
 
     def _compile_batch(self, served, queries_of, participants=None):
         """Fused host compile: per-table compile (block-granular replica
@@ -710,6 +882,12 @@ class ShardedEmbeddingServer:
         entirely under the new one.  Only the patch's tiles are copied
         into the image stack, on the server's stream; a failed copy or
         write raises (nothing is skipped).
+
+        A failure at the injector's patch seam (before any state
+        mutates) keeps the patch staged for the next barrier, up to
+        ``retry.patch_retries`` times, then drops it (recorded) and
+        serving continues under the live plan; under the legacy policy
+        it re-raises instead.
         """
         if self._staged is None:
             return
@@ -717,6 +895,23 @@ class ShardedEmbeddingServer:
             raise RuntimeError(
                 "plan patch applied mid-pipeline — barrier rule violated"
             )
+        if self._injector is not None:
+            try:
+                self._injector.on_patch()
+            except Exception:
+                self.stats.ledger.patch_failures += 1
+                self._patch_fail_streak += 1
+                if not self.retry.quarantine:
+                    raise
+                if self._patch_fail_streak > self.retry.patch_retries:
+                    self.stats.ledger.patches_dropped += 1
+                    dropped, self._staged = self._staged, None
+                    self._patch_fail_streak = 0
+                    if self.tracker is not None and dropped.promoted:
+                        # the drop discards promotions whose Eq.-1 target
+                        # status may persist: the next evaluation sees them
+                        self.tracker.mark_drifted(dropped.promoted)
+                return
         patch, self._staged = self._staged, None
         self._patch_fail_streak = 0
         with self._on_stream():
@@ -725,6 +920,10 @@ class ShardedEmbeddingServer:
             )
         self.plan = apply_plan_patch(self.plan, patch)
         self.stats.record_patch(patch, tile_bytes=self._tile_bytes)
+        if self._residency is not None:
+            # paging moved groups across the hot/cold boundary: routing
+            # re-snapshots residency here and only here (barrier rule)
+            self._residency.refresh(self.plan)
         # slack age-out bookkeeping (DESIGN.md §6.2): demotion-only
         # patches extend the streak, any promotion resets it
         if patch.promoted:
@@ -755,7 +954,12 @@ class ShardedEmbeddingServer:
         self._maybe_stage()
 
     def _maybe_stage(self) -> None:
-        """Stages a patch when the tracked drift crosses the threshold."""
+        """Stages a patch when the tracked drift crosses the threshold.
+
+        Shared by the compiled-batch observation and the host path's
+        flush: under tiering, cold-only traffic must still be able to
+        stage the paging patch that warms it up.
+        """
         if self._staged is not None or not self.tracker.ready:
             return
         drift = self.tracker.drift_from(
@@ -769,11 +973,17 @@ class ShardedEmbeddingServer:
             self.tracker.load(), self.plan, self._seg_load_totals
         )
         # long demotion streaks age the accumulated slack back out
+        # (untiered only: the hot tier's depth is fixed)
         shrink = (
             self.replan_cfg.slack_tiles
-            if self.replan_cfg.shrink_streak
+            if self.tiers is None
+            and self.replan_cfg.shrink_streak
             and self._demote_streak >= self.replan_cfg.shrink_streak
             else None
+        )
+        paging = (
+            self.tiers.paging_policy(self._capacity_tiles)
+            if self.tiers is not None else None
         )
         # only groups with traffic since the last evaluation (plus the
         # replicated set, added inside) can change replication class
@@ -784,10 +994,15 @@ class ShardedEmbeddingServer:
             eq1_batch=self._eq1_batch,
             capacity=int(self.shard_images.shape[1]),
             shrink_slack=shrink,
+            paging=paging,
             candidates=candidates,
         )
         if patch.deferred:
             self.tracker.mark_drifted(patch.deferred)
+        if patch.fetched:
+            # freshly resident groups may already be Eq.-1 targets: the
+            # next evaluation must reconsider them
+            self.tracker.mark_drifted([g for g, _ in patch.fetched])
         if patch.is_noop():
             # drift without a class change: reanchor group_load so the
             # demotion targets and the drift statistic track the
@@ -945,10 +1160,82 @@ class ShardedEmbeddingServer:
             return out
 
     def _ingest(self, table: str, seq: int, query) -> None:
-        """Routes one stamped query into the engine — the entry point
-        shared by the inline async submit path and the driver's loop."""
+        """Routes one stamped query by residency, then into the engine —
+        the entry point shared by the inline async submit path and the
+        driver's loop (the host flush appends to ``_completed``, so it
+        runs where the engine runs)."""
+        if self._route_host(table, seq, query):
+            return
         self.scheduler.push(table, seq, query)
         self._maybe_flush()
+
+    # ------------------------------------------- tiered host path (§9) ----
+
+    def _route_host(self, table: str, seq: int, query) -> bool:
+        """Detours a cold query into the host fetch queue.
+
+        Every submission (hot or cold) advances the tier tick, so a
+        queued cold query's deadline fires in a hot-dominated stream.
+        Residency alone decides the route.  Returns True when the query
+        was queued host-side.
+        """
+        if self._residency is None:
+            return False
+        self._tick += 1
+        arr = np.asarray(list(query), dtype=np.int64)
+        if self._residency.is_resident(table, arr):
+            self._maybe_flush_host()
+            # the host flush may have hit a patch barrier that paged this
+            # query's group out: re-check under the post-patch residency
+            # (the scheduler would raise on a cold group)
+            if self._residency.is_resident(table, arr):
+                self.stats.hot_queries += 1
+                return False
+        self.stats.host_queries += 1
+        self._host_queue.push(table, seq, arr, self._tick)
+        self._maybe_flush_host()
+        return True
+
+    def _maybe_flush_host(self) -> None:
+        reason = self._host_queue.due(self._tick)
+        if reason is None:
+            return
+        if reason == "deadline":
+            self.stats.host_deadline_flushes += 1
+        self._flush_host_queue()
+
+    def _flush_host_queue(self, *, forced: bool = False) -> None:
+        """Serves every queued cold query by the host gather+sum.
+
+        The batch's loads feed the drift tracker first (host traffic is
+        how a cold group earns its way in); when that staged a paging
+        patch on an un-forced flush, a barrier follows, so cold-only
+        traffic still reaches a patch-application point.  The rows go
+        to the card in one copy and are stored like a retired flush's.
+        ``forced`` marks the barrier's own drain (never re-enters).
+        """
+        if self._host_queue is None or len(self._host_queue) == 0:
+            return
+        entries = self._host_queue.take()
+        self.stats.host_flushes += 1
+        if self.tracker is not None:
+            self.tracker.observe(
+                self._residency.host_group_loads(entries), len(entries)
+            )
+            self._maybe_stage()
+        by_table: Dict[str, List[tuple]] = {}
+        for entry in entries:
+            by_table.setdefault(entry[0], []).append(entry)
+        rows = self._cold_rows([e for es in by_table.values() for e in es])
+        start = 0
+        for table, es in by_table.items():
+            seqs = np.asarray([seq for _t, seq, _q in es], dtype=np.int64)
+            self._record_completed(table, seqs, rows[start:start + len(es)])
+            start += len(es)
+        if not forced and self._staged is not None:
+            # cold-dominated traffic may never trip a device flush; the
+            # staged paging patch would otherwise wait forever
+            self._barrier()
 
     # ------------------------------------------------- async flush engine --
 
@@ -1088,9 +1375,14 @@ class ShardedEmbeddingServer:
         waited on only at hand-off (:meth:`_retire_oldest`).
 
         Mutates no engine state besides stats — a raise leaves the
-        pipeline as it was (the caller retries or requeues).
+        pipeline as it was (the caller retries or requeues).  The fault
+        injector's compile seam fires before the compile and its
+        dispatch seam between compile and kernel dispatch; an injected
+        hang tags the entry so readiness polling simulates a hung card.
         """
         t0 = time.perf_counter()
+        if self._injector is not None:
+            self._injector.on_compile(entries)
         by_table: Dict[str, Tuple[List[int], List[list]]] = {}
         for table, seq, query in entries:
             seqs, qs = by_table.setdefault(table, ([], []))
@@ -1105,6 +1397,10 @@ class ShardedEmbeddingServer:
             self.stats.record_compile(
                 time.perf_counter() - t0, hidden=self._device_busy()
             )
+            hang_s = (
+                self._injector.on_dispatch() if self._injector is not None
+                else None
+            )
             outs = crossbar_reduce_tables(
                 self.shard_images, sbq, spans,
                 combine_chunks=self.combine_chunks,
@@ -1117,6 +1413,7 @@ class ShardedEmbeddingServer:
                   for n in served},
             t0=t0, n_queries=sum(len(by_table[n][1]) for n in served),
             host_cq=host_cq, event=event, t_dispatch=time.perf_counter(),
+            hang_s=hang_s,
         )
 
     def _retire_oldest(self) -> None:
@@ -1130,6 +1427,8 @@ class ShardedEmbeddingServer:
         """
         e = self._in_flight.popleft()
         try:
+            if self._injector is not None:
+                self._injector.on_retire()
             outs = self._wait_outputs(e)
         except FlushTimeout:
             if self._host_tables is None:
@@ -1179,22 +1478,27 @@ class ShardedEmbeddingServer:
     def _wait_outputs(self, e: _InFlight) -> List[torch.Tensor]:
         """Waits for one flush's event, bounded by the watchdog.
 
-        Without a watchdog this is ``event.synchronize()``.  With one,
-        the event is polled and :class:`~repro_torch.serve.faults.
-        FlushTimeout` raises once ``watchdog_s`` has elapsed since the
-        flush's kernel DISPATCH.
+        Without a watchdog (and without an injected hang) this is
+        ``event.synchronize()``.  With one, readiness is polled and
+        :class:`~repro_torch.serve.faults.FlushTimeout` raises once
+        ``watchdog_s`` has elapsed since the flush's kernel DISPATCH.  An
+        injected infinite hang with no watchdog times out at once.
         """
         wd = self.retry.watchdog_s
-        if wd is None:
+        if wd is None and e.hang_s is None:
             if e.event is not None:
                 e.event.synchronize()
             return e.outs
         while not self._entry_ready(e):
             waited = time.perf_counter() - e.t_dispatch
-            if waited >= wd:
+            if wd is not None and waited >= wd:
                 raise FlushTimeout(
                     f"flush not ready {waited:.3f}s after dispatch "
                     f"(watchdog {wd}s)"
+                )
+            if wd is None and e.hang_s == math.inf:
+                raise FlushTimeout(
+                    "flush hung forever with no watchdog configured"
                 )
             time.sleep(self.retry.watchdog_poll_s)
         return e.outs
@@ -1265,6 +1569,9 @@ class ShardedEmbeddingServer:
             self._flush_home(home, forced=True)
         while self._in_flight:
             self._retire_oldest()
+        # queued cold work drains with the pipeline, so a drain hands
+        # back every submitted query's row
+        self._flush_host_queue(forced=True)
         self._apply_staged_patch()
         self.stats.barrier_flushes += 1
 
@@ -1340,6 +1647,11 @@ class ShardedEmbeddingServer:
 
     @staticmethod
     def _entry_ready(e: _InFlight) -> bool:
+        # an injected hang: not ready until hang_s after dispatch
+        if e.hang_s is not None and (
+            time.perf_counter() - e.t_dispatch
+        ) < e.hang_s:
+            return False
         # no event: CPU tensors (already computed) or a test stub
         return e.event is None or bool(e.event.query())
 
@@ -1434,7 +1746,8 @@ class ShardedEmbeddingServer:
             "requeued": requeued,
             "handoff_pushed_back": pushed_back,
             "in_flight": len(self._in_flight),
-            "host_pending": 0,
+            "host_pending": (len(self._host_queue)
+                             if self._host_queue is not None else 0),
             "stashed_errors": len(self._driver_errors),
             "driver_leaked": int(leaked),
         }
@@ -1517,7 +1830,8 @@ class ShardedEmbeddingServer:
                         if rest.size else []
                     )
         # sequence ids restart ONLY at full quiescence — nothing pending,
-        # in flight, stashed for another producer's drain, or still
+        # in flight, queued host-side, stashed for another producer's
+        # drain, or still
         # inside a submit()'s stamped-but-undelivered window (the
         # hand-off's unfinished_tasks counts popped-but-unprocessed items
         # too).  Per-producer drains never reset.
@@ -1533,6 +1847,8 @@ class ShardedEmbeddingServer:
                     if (not busy
                             and self.scheduler.pending_total() == 0
                             and not self._in_flight
+                            and (self._host_queue is None
+                                 or len(self._host_queue) == 0)
                             and not any(self._completed.values())):
                         self._registry.reset_seqs()
         return out
@@ -1553,7 +1869,10 @@ class ShardedEmbeddingServer:
         ``serve["faults"]``), ``mode`` (``"emulated"``), ``retry`` (the
         live :class:`RetryPolicy` knobs), ``dispatch_cache`` (the
         reference's schema, all zero), ``device``, ``image_bytes`` (the
-        shard image stack on the device), under an async policy
+        shard image stack on the device), with ``tiers=`` ``tiers``
+        (capacity, hysteresis, cold groups and tiles, resident groups,
+        the host queue), with ``faults=`` ``faults`` (the plan and the
+        per-seam attempt and injection counters), under an async policy
         ``scheduler`` (policy knobs, pipeline depth, pending/fill and
         producers) and, with ``replan=``, ``replan`` (drift against the
         live plan, tracker readiness, the staged patch's summary, image
@@ -1569,6 +1888,18 @@ class ShardedEmbeddingServer:
             "device": str(self.device),
             "image_bytes": self.shard_images.numel() * self.shard_images.element_size(),
         }
+        if self.tiers is not None:
+            plan = self.plan
+            rep["tiers"] = {
+                "capacity_tiles": self._capacity_tiles,
+                "hysteresis": self.tiers.hysteresis,
+                "cold_groups": int(plan.cold_groups.size),
+                "cold_tiles": plan.cold_tiles,
+                "resident_groups": int(plan.resident_group.sum()),
+                "host_queue": self._host_queue.state(),
+            }
+        if self._injector is not None:
+            rep["faults"] = self._injector.summary()
         if self.scheduler is not None:
             rep["scheduler"] = {
                 "policy": self.policy.kind,

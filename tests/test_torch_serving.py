@@ -17,7 +17,7 @@ import torch
 from repro.data import zipf_queries
 from repro.serve import ShardedEmbeddingServer as JaxServer
 from repro_torch.convert import shard_images_from_numpy, tables_from_numpy
-from repro_torch.serve import ReplanConfig
+from repro_torch.serve import FaultPlan, ReplanConfig, TierConfig
 from repro_torch.serve import ShardedEmbeddingServer as TorchServer
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -117,8 +117,11 @@ def test_bf16_tables_keep_their_dtype():
     ({"threaded": True}, ValueError, "async kind"),
     # drift tracking and replanning are ported: this case serves
     ({"replan": ReplanConfig()}, None, None),
-    ({"tiers": object()}, NotImplementedError, "tiers and faults"),
-    ({"faults": object()}, NotImplementedError, "tiers and faults"),
+    # tiered storage and fault injection are ported: these cases serve
+    ({"tiers": TierConfig(capacity_frac=0.5)}, None, None),
+    ({"faults": FaultPlan([], seed=0).add("compile", tick=0)}, None, None),
+    # the reference's rule: faults= takes a FaultPlan or a FaultInjector
+    ({"faults": object()}, TypeError, "FaultPlan"),
 ])
 def test_unported_modes_raise(kwargs, error, match):
     tables, histories, stream = _setup(seed=1)
