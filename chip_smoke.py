@@ -36,8 +36,18 @@ Phases, in order; any failure propagates and the process exits non-zero:
    ``torch.cuda._sleep`` returning with its event pending; then
    integer-valued tables served under global, per-shard, deadline,
    owner-set and owner-set threaded with two producers, every drain
-   bit-identical to gather+sum; serving-replan: the serving-async
-   configuration with ``replan=`` (threshold 0.2, half-life 4, 64
+   bit-identical to gather+sum; serving-mesh: (a) the serving
+   configuration through a world of 1 process on an NCCL data plane
+   (``mesh=``), bit-identical to the serving phase's rows; (b) the
+   serving-async configuration through 4 processes on the one card (this
+   one rank 0, three spawned after the build) on a gloo data plane, each
+   holding only its shard and running the crossbar kernel: rows against
+   serving-async's within ``TOL`` and sampled against gather+sum,
+   participant sizes 1, 2 and 4, queries/s, the combine's CUDA-event time
+   a flush, combine and result bytes, then the integer-valued stream
+   under the five setups, equal to the emulated card server's; the
+   kernels line counts every rank's launches; serving-replan: the
+   serving-async configuration with ``replan=`` (threshold 0.2, half-life 4, 64
    queries, 8 slack tiles) over 1,024 queries a table whose row ids
    rotate through a fixed permutation from half-way on; at least one
    patch must copy tiles, rows are held against the serving phase's and
@@ -155,6 +165,13 @@ ASYNC_SHARDS = 4                       # serving-async: shards emulated on the o
 BITS_ROWS = 4_096                      # serving-async: integer-valued tables
 BITS_QUERIES = 1_024
 BUSY_CYCLES = 200_000_000              # torch.cuda._sleep before one dispatch, ~0.1 s
+# serving-mesh (b): 4 ranks on the one card; NCCL puts at most one rank on
+# a card, and gloo takes CUDA tensors in every collective of the combine
+# (its point-to-point result send goes through host memory)
+MESH_BACKEND = "gloo"
+MESH_COMBINE = "psum_scatter"
+MESH_SERVERS = 1 + 5                   # the FULL run, then the five bits setups
+MESH_TIMEOUT_S = 300.0
 PLAN_BUDGET_S = 180.0
 MAX_BAG = 64                           # dlrm-recross FULL
 TRAIN_STEPS = 20
@@ -625,7 +642,7 @@ def phase_serving_async(torch, np, tables, histories, streams, served) -> dict:
         "host_compile_s": s["host_compile_s"], "hidden_compile_s": s["hidden_compile_s"],
         "overlap_fraction": s["overlap_fraction"], "in_flight_peak": s["in_flight_peak"],
         "batches": s["batches"], "shard_flushes": s["shard_flushes"],
-        "participant_sizes": s["participant_sizes"],
+        "participant_sizes": s["participant_sizes"], "combine_bytes": s["combine_bytes"],
         "deadline_flushes": s["deadline_flushes"], "barrier_flushes": s["barrier_flushes"],
         "kernel_launches": launches, "routed_queries": routed,
         "dispatches": dispatched["flushes"], "pending_at_dispatch_return": dispatched["pending"],
@@ -634,7 +651,305 @@ def phase_serving_async(torch, np, tables, histories, streams, served) -> dict:
         "sample_max_abs_err": oracle_err, "faults": s["faults"],
     }
     log("serving-async", json.dumps(stats))
+    return stats, out
+
+
+def _mesh_worker(rank, init_method, results) -> None:
+    """A worker rank of ``phase_serving_mesh`` (b): joins the 4-rank world on
+    the one card and runs ``serve_worker`` once per mesh server of the
+    phase, counting its crossbar launches in each; reports them, or its
+    traceback, to the parent.  The kernels are already built."""
+    import traceback
+
+    sys.path.insert(0, str(SRC))
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.dist.mesh import init_shard_mesh
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.crossbar_reduce import crossbar_reduce_cuda
+    from repro_torch.serve.sharded import serve_worker
+
+    mesh = None
+    try:
+        _build.load_crossbar()
+        mesh = init_shard_mesh(ASYNC_SHARDS, rank=rank, world_size=ASYNC_SHARDS,
+                               device=DEVICE, backend=MESH_BACKEND,
+                               init_method=init_method, timeout_s=MESH_TIMEOUT_S)
+        launches = []
+        for _ in range(MESH_SERVERS):
+            crossbar_reduce_cuda.launches = 0
+            served = serve_worker(mesh)
+            launches.append({"launches": crossbar_reduce_cuda.launches, **served})
+        results.put((rank, launches, None))
+    except BaseException:
+        results.put((rank, None, traceback.format_exc()))
+        raise
+    finally:
+        if mesh is not None:
+            mesh.close()
+
+
+def _serve_in_order(torch, server, order, names) -> dict:
+    """``order`` through ``submit`` and one ``flush``; ``{table: rows}``."""
+    parts = {n: [] for n in names}
+    for name, q in order:
+        for n, rows in server.submit(name, q).items():
+            parts[n].append(rows)
+    for n, rows in server.flush().items():
+        parts[n].append(rows)
+    return {n: torch.cat(parts[n]) for n in names}
+
+
+def phase_serving_mesh(torch, np, tables, histories, streams, served, async_stats,
+                       async_rows) -> dict:
+    """The sharded server with one process per shard (``mesh=``).
+
+    (a) A world of 1 on an NCCL data plane, in this process: dlrm-recross
+    FULL, 1 shard, ``global``; its rows must equal the serving phase's bit
+    for bit (the NCCL init, the control plane and the single-participant
+    branch on the card).
+
+    (b) A world of 4 ranks on the one card (NCCL puts at most one rank on
+    a card) with a gloo data plane: this process is rank 0 and spawns
+    ranks 1-3 once the kernels are built.  The serving-async
+    configuration (FULL, 4 shards, owner-set homes of at most 2 owners,
+    the thread driver, two producers, the first 4,096 queries): rows
+    against serving-async's within ``TOL`` (the collectives sum in another
+    order) and sampled against gather+sum; participant sizes 1, 2 and 4;
+    queries/s, the combine's CUDA-event time per flush, combine and
+    result bytes.  Then the integer-valued bits stream under the five
+    setups, each drain bit-identical to the emulated card server's and
+    to gather+sum.  Each rank holds only its own shard of the image."""
+    import multiprocessing as mp
+    import tempfile
+
+    from repro_torch.dist.mesh import init_shard_mesh
+    from repro_torch.kernels.crossbar_reduce import crossbar_reduce_cuda
+    from repro_torch.serve import ShardedEmbeddingServer
+
+    names = sorted(tables)
+    order = served["order"]
+    kw = {"q_block": Q_BLOCK, "group_size": GROUP_SIZE, "batch_size": BATCH_SIZE,
+          "device": DEVICE}
+    stats = {}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        # ---- (a) world 1, NCCL ----
+        mesh = init_shard_mesh(1, rank=0, world_size=1, device=DEVICE, backend="nccl",
+                               init_method=f"file://{tmp}/world1",
+                               timeout_s=MESH_TIMEOUT_S)
+        try:
+            t0 = time.perf_counter()
+            server = ShardedEmbeddingServer(tables, histories, num_shards=1, mesh=mesh, **kw)
+            plan_s = time.perf_counter() - t0
+            crossbar_reduce_cuda.launches = 0
+            t0 = time.perf_counter()
+            out = _serve_in_order(torch, server, order, names)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches_a = crossbar_reduce_cuda.launches
+            server.close()
+            rep = server.report()
+        finally:
+            mesh.close()
+        del server
+        for n in names:
+            if not torch.equal(out[n], served["out"][n]):
+                bad = float((out[n] - served["out"][n]).abs().max().item())
+                raise AssertionError(f"serving-mesh (a): table {n} is not bit-identical to "
+                                     f"the serving phase's (max_abs_err {bad})")
+        s = rep["serve"]
+        if rep["mode"] != "shard_map" or set(s["participant_sizes"]) != {"1"} or launches_a <= 0:
+            raise AssertionError(f"serving-mesh (a): mode {rep['mode']}, participant sizes "
+                                 f"{s['participant_sizes']}, {launches_a} launches")
+        stats["a"] = {"world": 1, "backend": "nccl", "plan_build_s": plan_s,
+                      "queries": s["queries"], "wall_s": wall,
+                      "queries_per_s": s["queries"] / wall, "kernel_launches": launches_a,
+                      "combine_bytes": s["combine_bytes"],
+                      "result_bytes": rep["mesh"]["result_bytes"], "bit_identical": True}
+        log("serving-mesh (a)", json.dumps(stats["a"]))
+        del out
+        torch.cuda.empty_cache()
+
+        # ---- (b) world 4 on the one card, gloo ----
+        init = f"file://{tmp}/world4"
+        ctx = mp.get_context("spawn")
+        results = ctx.Queue()
+        workers = [ctx.Process(target=_mesh_worker, args=(r, init, results), daemon=True)
+                   for r in range(1, ASYNC_SHARDS)]
+        for w in workers:
+            w.start()
+        try:
+            stats["b"] = _mesh_world4(torch, np, tables, histories, streams, order,
+                                      async_stats, async_rows, init, results)
+            for w in workers:
+                w.join(timeout=120)
+        finally:
+            for w in workers:
+                if w.is_alive():
+                    w.kill()
+                    w.join()
+        failed = [w.exitcode for w in workers if w.exitcode != 0]
+        if failed:
+            raise AssertionError(f"serving-mesh (b): worker exit codes {failed}")
+    stats["kernel_launches"] = stats["a"]["kernel_launches"] + stats["b"]["kernel_launches"]
     return stats
+
+
+def _mesh_world4(torch, np, tables, histories, streams, order, async_stats, async_rows,
+                 init, results) -> dict:
+    """Rank 0 of ``phase_serving_mesh`` (b)."""
+    import queue as queue_mod
+
+    from repro_torch.core import reduce_dense_oracle
+    from repro_torch.dist.mesh import init_shard_mesh
+    from repro_torch.kernels.crossbar_reduce import crossbar_reduce_cuda
+    from repro_torch.serve import ShardedEmbeddingServer
+
+    names = sorted(tables)
+    mesh = init_shard_mesh(ASYNC_SHARDS, rank=0, world_size=ASYNC_SHARDS, device=DEVICE,
+                           backend=MESH_BACKEND, init_method=init, timeout_s=MESH_TIMEOUT_S)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        server = ShardedEmbeddingServer(
+            tables, histories, num_shards=ASYNC_SHARDS, mesh=mesh, combine=MESH_COMBINE,
+            q_block=Q_BLOCK, group_size=GROUP_SIZE, batch_size=BATCH_SIZE,
+            flush_policy="owner-set", owner_set_max=2, threaded=True, max_in_flight=2,
+            device=DEVICE,
+        )
+        setup_s = time.perf_counter() - t0
+        image = server.shard_images
+        labels = ("p0", "p1")
+        for label in labels:
+            server.register_producer(label)
+        slices = {label: [order[i] for i in range(p, len(order), 2)]
+                  for p, label in enumerate(labels)}
+        mesh.combine_events.clear()
+        mesh.record_combine = True
+        crossbar_reduce_cuda.launches = 0
+        t0 = time.perf_counter()
+        try:
+            _submit_from_producers(server, slices)
+            out = server.drain()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches0 = crossbar_reduce_cuda.launches
+        finally:
+            server.close()
+        mesh.record_combine = False
+        combine_ms = mesh.combine_ms()
+        rep = server.report()
+        image_shape, image_bytes = list(image.shape), image.numel() * image.element_size()
+        del server, image
+        torch.cuda.empty_cache()
+        merged = merge_positions(order, names)
+        err = oracle_err = 0.0
+        for n in names:
+            got = out.get(n)
+            if got is None or got.shape != (len(merged[n]), PADDED_DIM) or not torch.isfinite(got).all():
+                raise AssertionError(f"serving-mesh (b) table {n}: bad output "
+                                     f"{None if got is None else tuple(got.shape)}")
+            err = max(err, float((got - async_rows[n]).abs().max().item()))
+        if err > TOL["float32"]:
+            raise AssertionError(f"serving-mesh (b) rows disagree with serving-async's: {err}")
+        pick = np.random.default_rng(13).choice(len(order), size=SAMPLE_ROWS, replace=False)
+        flat = [(n, j) for n in names for j in range(len(merged[n]))]
+        for i in pick.tolist():
+            n, j = flat[i]
+            want = reduce_dense_oracle(tables[n], [streams[n][merged[n][j]]])[0]
+            oracle_err = max(oracle_err, float((out[n][j] - want).abs().max().item()))
+        if oracle_err > TOL["float32"]:
+            raise AssertionError(f"serving-mesh (b) rows disagree with gather+sum: {oracle_err}")
+        s = rep["serve"]
+        sizes = {int(k) for k in s["participant_sizes"]}
+        if not {1, 2, ASYNC_SHARDS} <= sizes:
+            raise AssertionError(f"serving-mesh (b): participant sizes {sizes}, need 1, 2 "
+                                 f"and {ASYNC_SHARDS}")
+        if rep["mode"] != "shard_map":
+            raise AssertionError(f"serving-mesh (b): mode {rep['mode']}")
+        del out
+
+        bits = _mesh_bits(torch, np, mesh)
+    finally:
+        mesh.close()
+    per_rank = {0: [launches0] + bits.pop("rank0_launches")}
+    for _ in range(ASYNC_SHARDS - 1):
+        try:
+            rank, counts, error = results.get(timeout=120)
+        except queue_mod.Empty:
+            raise AssertionError("serving-mesh (b): a worker sent no result") from None
+        if error is not None:
+            raise AssertionError(f"serving-mesh (b): rank {rank} failed:\n{error}")
+        per_rank[rank] = [c["launches"] for c in counts]
+    # the FULL run's launches of every rank (the bits runs are not the main path)
+    launches = sum(counts[0] for counts in per_rank.values())
+    if min(counts[0] for counts in per_rank.values()) <= 0:
+        raise AssertionError(f"serving-mesh (b): a rank launched no kernel: {per_rank}")
+    pct = {k: {p: s[k][p] for p in ("p50", "p99")}
+           for k in ("submit_latency_s", "e2e_latency_s", "flush_latency_s")}
+    stats = {
+        "world": ASYNC_SHARDS, "backend": MESH_BACKEND, "combine": MESH_COMBINE,
+        "tables": len(names), "rows": ROWS, "dim": PADDED_DIM, "policy": "owner-set",
+        "owner_set_max": 2, "threaded": True, "producers": 2,
+        "setup_s": setup_s, "image_shape": image_shape, "image_bytes_per_rank": image_bytes,
+        "max_memory_allocated_rank0": torch.cuda.max_memory_allocated(),
+        "queries": s["queries"], "wall_s": wall, "queries_per_s": s["queries"] / wall,
+        "serving_async_queries_per_s": async_stats["queries_per_s"], **pct,
+        "batches": s["batches"], "participant_sizes": s["participant_sizes"],
+        "shard_flushes": s["shard_flushes"],
+        "combines_timed": len(combine_ms),
+        "combine_ms_p50": statistics.median(combine_ms) if combine_ms else None,
+        "combine_ms_mean": statistics.fmean(combine_ms) if combine_ms else None,
+        "combine_ms_max": max(combine_ms) if combine_ms else None,
+        "combine_bytes": s["combine_bytes"], "result_bytes": rep["mesh"]["result_bytes"],
+        "subgroups": rep["dispatch_cache"]["mesh_subset"],
+        "kernel_launches": launches, "launches_per_rank": per_rank,
+        "max_abs_err_vs_serving_async": err, "sampled_rows": SAMPLE_ROWS,
+        "sample_max_abs_err": oracle_err, "bits": bits,
+    }
+    log("serving-mesh (b)", json.dumps(stats))
+    return stats
+
+
+def _mesh_bits(torch, np, mesh) -> dict:
+    """The integer-valued bits stream through a mesh server under the five
+    setups, each drain bit-identical to the emulated card server's and to
+    gather+sum; rank 0's launches of each run."""
+    from repro_torch.convert import tables_from_numpy
+    from repro_torch.core import reduce_dense_oracle
+    from repro_torch.kernels.crossbar_reduce import crossbar_reduce_cuda
+    from repro_torch.serve import ShardedEmbeddingServer
+
+    names, host, histories, stream = bits_inputs(np)
+    tables = tables_from_numpy(host, DEVICE)
+    per_table = {n: [q for t, q in stream if t == n] for n in names}
+    oracle = {n: reduce_dense_oracle(tables[n], per_table[n]) for n in names}
+    slices = bits_slices(stream, names)
+    runs, launches = {}, []
+    for label, policy, threaded in BITS_SETUPS:
+        got = {}
+        for meshed in (True, False):
+            server = ShardedEmbeddingServer(
+                tables, histories, num_shards=ASYNC_SHARDS, q_block=4,
+                group_size=GROUP_SIZE, batch_size=32, flush_policy=policy,
+                threaded=threaded, device=DEVICE, mesh=mesh if meshed else None,
+                combine=MESH_COMBINE)
+            crossbar_reduce_cuda.launches = 0
+            got[meshed] = serve_bits(torch, server, names, stream, slices, threaded,
+                                     _submit_from_producers)
+            if meshed:
+                launches.append(crossbar_reduce_cuda.launches)
+                runs[label] = {"flushes": server.stats.batches,
+                               "participant_sizes": server.stats.summary()["participant_sizes"],
+                               "result_bytes": server.stats.result_bytes}
+        for n in names:
+            if not (torch.equal(got[True][n], got[False][n])
+                    and torch.equal(got[True][n], oracle[n])):
+                raise AssertionError(f"serving-mesh bits: {label} table {n} is not "
+                                     f"bit-identical to the emulated server and gather+sum")
+    return {"rows": BITS_ROWS, "queries": len(stream), "runs": runs,
+            "bit_identical": True, "rank0_launches": launches}
 
 
 def busy_stream_dispatch(torch, server, dispatch, order, rows_global, *,
@@ -1246,6 +1561,31 @@ def serve_bits(torch, server, names, stream, slices, threaded, submit) -> dict:
         server.close()
 
 
+def bits_inputs(np):
+    """The integer-valued bits stream: two 4,096 x 128 tables, their
+    histories and 1,024 queries, ``a`` twice as often as ``b``."""
+    from repro_torch.data import zipf_queries
+
+    rng = np.random.default_rng(99)
+    names = ("a", "b")
+    host = {n: rng.integers(-8, 9, size=(BITS_ROWS, PADDED_DIM)).astype(np.float32)
+            for n in names}
+    histories = {n: zipf_queries(BITS_ROWS, 2048, 12.0, seed=10 + i) for i, n in enumerate(names)}
+    base = [("a" if i % 3 else "b", q)
+            for i, q in enumerate(zipf_queries(BITS_ROWS, BITS_QUERIES, 12.0, seed=20))]
+    return names, host, histories, base
+
+
+def bits_slices(stream, names) -> dict:
+    """The k-th query of a table goes to producer k % 2: the ``(local_seq,
+    pid)`` merge then restores each table's submission order."""
+    slices, count = {"p0": [], "p1": []}, {n: 0 for n in names}
+    for t, q in stream:
+        slices[f"p{count[t] % 2}"].append((t, q))
+        count[t] += 1
+    return slices
+
+
 def phase_async_bits(torch, np) -> dict:
     """Integer-valued tables on the card: one seeded stream served under
     global, per-shard, deadline and owner-set inline, and owner-set on the
@@ -1263,20 +1603,13 @@ def phase_async_bits(torch, np) -> dict:
     injector's patch seam."""
     from repro_torch.convert import tables_from_numpy
     from repro_torch.core import reduce_dense_oracle
-    from repro_torch.data import zipf_queries
     from repro_torch.kernels.crossbar_reduce import crossbar_reduce_cuda
     from repro_torch.serve import (
         FaultPlan, ReplanConfig, RetryPolicy, ShardedEmbeddingServer, TierConfig,
     )
 
-    rng = np.random.default_rng(99)
-    names = ("a", "b")
-    host = {n: rng.integers(-8, 9, size=(BITS_ROWS, PADDED_DIM)).astype(np.float32)
-            for n in names}
+    names, host, histories, base = bits_inputs(np)
     tables, cpu_tables = tables_from_numpy(host, DEVICE), tables_from_numpy(host, "cpu")
-    histories = {n: zipf_queries(BITS_ROWS, 2048, 12.0, seed=10 + i) for i, n in enumerate(names)}
-    base = [("a" if i % 3 else "b", q)
-            for i, q in enumerate(zipf_queries(BITS_ROWS, BITS_QUERIES, 12.0, seed=20))]
     tier_keys = ("hot_queries", "host_queries", "host_flushes", "fetched_tiles",
                  "evicted_tiles")
     runs, uncapped = {}, {}
@@ -1286,12 +1619,7 @@ def phase_async_bits(torch, np) -> dict:
         stream = drift_stream(np, base, BITS_ROWS, DRIFT_SEED) if mode != "plain" else base
         per_table = {n: [q for t, q in stream if t == n] for n in names}
         oracle = {n: reduce_dense_oracle(tables[n], per_table[n]) for n in names}
-        # the k-th query of a table goes to producer k % 2: the (local_seq,
-        # pid) merge then restores each table's submission order
-        slices, count = {"p0": [], "p1": []}, {n: 0 for n in names}
-        for t, q in stream:
-            slices[f"p{count[t] % 2}"].append((t, q))
-            count[t] += 1
+        slices = bits_slices(stream, names)
         submit = _submit_in_turns if mode != "plain" else _submit_from_producers
         setups = BITS_SETUPS + ((patch_fault,) if mode == "tiers" else ())
         for label, policy, threaded in setups:
@@ -2175,7 +2503,12 @@ def main() -> int:
     phase_parity(torch, timer)
     serving, serving_row, server, tables, streams, histories, served = phase_serving(
         torch, np, timer)
-    serving_async = phase_serving_async(torch, np, tables, histories, streams, served)
+    serving_async, async_rows = phase_serving_async(torch, np, tables, histories, streams,
+                                                    served)
+    torch.cuda.empty_cache()
+    serving_mesh = phase_serving_mesh(torch, np, tables, histories, streams, served,
+                                      serving_async, async_rows)
+    del async_rows
     torch.cuda.empty_cache()
     serving_replan = phase_serving_replan(torch, np, timer, tables, histories, served,
                                           serving_async)
@@ -2199,11 +2532,12 @@ def main() -> int:
 
     crossbar_src = "src/repro_torch/kernels/csrc/crossbar_reduce.cu"
     kernels = [
-        # launches over the serving, serving-async, serving-replan and
-        # serving-tiers phases
+        # launches over the serving, serving-async, serving-mesh (every
+        # rank), serving-replan and serving-tiers phases
         kernel_entry("crossbar_reduce_blocked", crossbar_src,
                      "src/repro/kernels/crossbar_reduce.py:103",
                      serving["kernel_launches"] + serving_async["kernel_launches"]
+                     + serving_mesh["kernel_launches"]
                      + serving_replan["kernel_launches"] + serving_tiers["kernel_launches"],
                      serving_row),
         # launches over the flat-op and DLRM phases

@@ -1,8 +1,11 @@
 """Sharded multi-table serving launcher (PyTorch port).
 
 Stands up a :class:`~repro_torch.serve.sharded.ShardedEmbeddingServer`
-over synthetic tables on one device (``--shards`` are emulated in the
-shard loop), drives a stream of per-table Zipf queries through
+over synthetic tables with one process per shard (a
+:class:`~repro_torch.dist.mesh.ShardMesh`: rank 0 runs the server, the
+other ranks :func:`~repro_torch.serve.sharded.serve_worker`), or on one
+device with ``--emulate`` (the shards emulated in the shard loop), drives
+a stream of per-table Zipf queries through
 ``submit``/``flush`` (or, with ``--producers N``, from N producer threads
 and one final ``drain``) and prints the report as JSON.  With
 ``--drift`` every row id of the stream's tail is remapped through a fixed
@@ -16,8 +19,10 @@ self-healing policy.
 
 Usage::
 
-    PYTHONPATH=src python -m repro_torch.launch.serve_sharded
-    PYTHONPATH=src python -m repro_torch.launch.serve_sharded --device cpu \\
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve_sharded --shards 4
+    PYTHONPATH=src python -m repro_torch.launch.serve_sharded --shards 4 --backend gloo
+    PYTHONPATH=src python -m repro_torch.launch.serve_sharded --emulate
+    PYTHONPATH=src python -m repro_torch.launch.serve_sharded --emulate --device cpu \\
         --rows 512 --history 256 --requests 128 --batch-size 32
     PYTHONPATH=src python -m repro_torch.launch.serve_sharded --shards 4 \\
         --flush-policy owner-set --owner-set-max 2 --threaded --producers 2 --skew 3
@@ -29,6 +34,15 @@ Usage::
     PYTHONPATH=src python -m repro_torch.launch.serve_sharded --device cpu \
         --flush-policy per-shard --threaded \
         --inject compile:2,device:1,poison:1,hang:1 --inject-seed 0 --watchdog 2.0
+
+Without ``--emulate`` the ranks come from ``torchrun`` (``RANK``,
+``WORLD_SIZE``, ``LOCAL_RANK``), or the launcher, as rank 0, spawns
+``--shards - 1`` worker processes itself, joined by a ``file://`` store in
+a temporary directory.  ``--backend`` picks the data plane's collectives
+(NCCL by default on the card, gloo on the CPU; NCCL puts at most one rank
+on a card, so several ranks on one card need ``--backend gloo``).  Rank 0
+prints the report; a worker exits 0 once the server's ``STOP`` reached
+it, and the launcher exits non-zero if a worker failed.
 
 The device defaults to ``cuda``; there is no fallback to the CPU, which
 runs the kernels' plain versions only when asked for with ``--device cpu``.
@@ -43,6 +57,9 @@ from __future__ import annotations
 
 import argparse
 import json
+import multiprocessing as mp
+import os
+import tempfile
 import threading
 import time
 
@@ -52,7 +69,17 @@ def parse_args(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device for the shard images and kernels")
     ap.add_argument("--shards", type=int, default=1,
-                    help="shards to plan for, emulated on the one device")
+                    help="shards to plan for: one process each, or emulated "
+                         "on one device with --emulate")
+    ap.add_argument("--emulate", action="store_true",
+                    help="single-device shard loop instead of one process per shard")
+    ap.add_argument("--backend", choices=["nccl", "gloo"], default=None,
+                    help="the combine's collectives across the shard processes "
+                         "(default: nccl on cuda, gloo on cpu)")
+    ap.add_argument("--combine", choices=["psum_scatter", "psum"],
+                    default="psum_scatter",
+                    help="cross-shard combine: reduce-scatter over the embedding "
+                         "dim + all-gather, or all-reduce")
     ap.add_argument("--tables", type=int, default=2)
     ap.add_argument("--rows", type=int, default=2048)
     ap.add_argument("--dim", type=int, default=128)
@@ -177,7 +204,9 @@ def build_fault_plan(args, table_names, requests):
     )
 
 
-def main(args) -> dict:
+def main(args, mesh=None) -> dict:
+    """Serves the stream with rank 0's server on ``mesh`` (``None``: the
+    emulated server) and returns its report."""
     import numpy as np
 
     from repro_torch.convert import tables_from_numpy
@@ -200,9 +229,9 @@ def main(args) -> dict:
     }
     server = ShardedEmbeddingServer(
         tables, histories,
-        num_shards=args.shards, q_block=args.q_block,
+        num_shards=args.shards, mesh=mesh, q_block=args.q_block,
         group_size=args.group_size, batch_size=args.batch_size,
-        combine_chunks=args.combine_chunks, device=args.device,
+        combine=args.combine, combine_chunks=args.combine_chunks, device=args.device,
         flush_policy=args.flush_policy,
         union_budget=args.union_budget,
         flush_deadline=args.flush_deadline,
@@ -295,8 +324,82 @@ def main(args) -> dict:
     return report
 
 
+def _share_host(args) -> None:
+    """On the CPU the shard processes share the host's cores: each rank
+    takes an equal share of intra-op threads, or the plain kernels and
+    gloo's reductions of the ranks starve each other."""
+    if args.device == "cpu":
+        import torch
+
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // max(1, args.shards)))
+
+
+def _worker(rank, args, init_method) -> None:
+    """A spawned shard process: joins the world and serves until STOP."""
+    from repro_torch.dist.mesh import init_shard_mesh
+    from repro_torch.serve.sharded import serve_worker
+
+    _share_host(args)
+    mesh = init_shard_mesh(args.shards, rank=rank, world_size=args.shards,
+                           device=args.device, backend=args.backend,
+                           init_method=init_method)
+    try:
+        serve_worker(mesh)
+    finally:
+        mesh.close()
+
+
+def run(args) -> dict | None:
+    """Runs the launcher: emulated, as one ``torchrun`` rank, or as rank
+    0 of a world it spawns.  Returns rank 0's report (``None`` on the
+    other ranks)."""
+    if args.emulate:
+        return main(args)
+    from repro_torch.dist.mesh import init_shard_mesh
+    from repro_torch.serve.sharded import serve_worker
+
+    _share_host(args)
+    if "RANK" in os.environ:
+        mesh = init_shard_mesh(args.shards, device=args.device, backend=args.backend)
+        try:
+            if mesh.rank == 0:
+                return main(args, mesh)
+            serve_worker(mesh)
+            return None
+        finally:
+            mesh.close()
+    with tempfile.TemporaryDirectory() as tmp:
+        init = f"file://{os.path.join(tmp, 'store')}"
+        ctx = mp.get_context("spawn")
+        workers = [ctx.Process(target=_worker, args=(r, args, init), daemon=True)
+                   for r in range(1, args.shards)]
+        for w in workers:
+            w.start()
+        try:
+            mesh = init_shard_mesh(args.shards, rank=0, world_size=args.shards,
+                                   device=args.device, backend=args.backend,
+                                   init_method=init)
+            try:
+                report = main(args, mesh)
+            finally:
+                mesh.close()
+            for w in workers:
+                w.join(timeout=60)
+        finally:
+            for w in workers:
+                if w.is_alive():
+                    w.kill()
+                    w.join()
+    failed = [r for r, w in enumerate(workers, 1) if w.exitcode != 0]
+    if failed:
+        raise SystemExit(f"shard worker(s) {failed} failed")
+    return report
+
+
 if __name__ == "__main__":
-    report = main(parse_args())
+    report = run(parse_args())
+    if report is None:  # a torchrun worker rank: rank 0 reports
+        raise SystemExit(0)
     print(json.dumps(report, indent=1, default=str))
     poisoned = report.get("faults", {}).get("plan", {}).get("poisoned", [])
     unplanned = [q for q in report["serve"]["faults"]["quarantined"]

@@ -5,8 +5,8 @@ for ``family == "dense"``: pre-norm GQA attention + (Sw/Ge)GLU MLP
 blocks, layer parameters stacked on a leading ``L`` axis as JAX's
 ``stack_layers`` does, the vocab padded to ``cfg.padded_vocab``,
 ``tie_embeddings`` and ``use_bias`` as configured.  The other families
-(moe, vlm, audio, ssm, hybrid) and ``forward`` wait for a later slice
-(ROADMAP Queue 1 item 10).
+(moe, vlm, audio, ssm, hybrid) and ``forward`` come with the LM-stack
+slice of the port.
 """
 
 from __future__ import annotations
@@ -51,8 +51,8 @@ def init_lm(generator: torch.Generator, cfg: ModelConfig) -> Params:
     """
     if cfg.family != "dense":
         raise NotImplementedError(
-            f"init_lm: family {cfg.family!r} is not ported yet (ROADMAP Queue 1 "
-            f"item 10); the port has the dense family"
+            f"init_lm: family {cfg.family!r} is not ported yet; it comes with the "
+            f"LM-stack slice of the PyTorch port, which has the dense family"
         )
     dtype, device = cfg.torch_dtype, generator.device
     params: Params = {"final_norm": init_norm(cfg.d_model, cfg.norm, dtype, device)}

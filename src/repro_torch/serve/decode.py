@@ -23,7 +23,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import apply_mlp, apply_norm, layer_slice
 
-_NOT_PORTED = "is not ported yet (ROADMAP Queue 1 item 10)"
+_NOT_PORTED = "is not ported yet; it comes with the LM-stack slice of the PyTorch port"
 
 
 def _attn_kwargs(cfg: ModelConfig) -> dict:

@@ -47,7 +47,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *, quant: bool = Fals
     if cfg.family in ("dense", "moe", "audio"):
         return make_attn_cache(cfg, batch, max_seq, quant=quant, device=device)
     raise NotImplementedError(
-        f"init_cache: family {cfg.family!r} is not ported yet (ROADMAP Queue 1 item 10)"
+        f"init_cache: family {cfg.family!r} is not ported yet; it comes with the "
+        "LM-stack slice of the PyTorch port"
     )
 
 

@@ -78,8 +78,34 @@ dispatch, retire and patch-apply seams; a simulated hang keeps a flush
 raises :class:`~repro_torch.serve.faults.FlushTimeout`; only a CPU
 server degrades it to the host.
 
-Not ported yet, and refused with ``NotImplementedError``: ``mesh=``
-(``torch.distributed`` slice).
+**One process per shard** (``mesh=`` a :class:`~repro_torch.dist.mesh.
+ShardMesh`, the counterpart of the reference's ``shard_map`` path).  The
+reference is one controller: a single scheduler decides every flush, and
+some decisions depend on time (the ``deadline_s`` trigger, the watchdog,
+the thread driver), so they cannot be replayed in step on several ranks,
+and ranks whose collectives disagree hang.  So rank 0 is the only
+controller.  It runs the front door, the scheduler, the host compile,
+drift, replanning and the tier host path exactly as the emulated server
+does, and holds shard 0; every other rank runs :func:`serve_worker`,
+which blocks on a control-plane header (``IMAGE``, ``FLUSH``, ``PATCH``
+or ``STOP``), receives its own schedule, patch tiles or image shard as
+CPU tensors, copies them to its device, runs its kernel and joins the
+combine (:mod:`repro_torch.kernels.sharded`).  A patch's change of depth
+rides its ``PATCH`` message: every rank resizes its own shard.
+
+All control traffic is sent from the one thread that owns the engine
+(the driver thread when ``threaded``; the constructor sends the image and
+:meth:`~ShardedEmbeddingServer.close` sends ``STOP``), so the headers
+reach every rank in one order.  The fault injector's seams fire on rank 0
+before a flush's header is sent or after its result is received, never in
+between, so an injected fault never leaves a worker inside a collective.
+A failed collective or transfer raises :class:`~repro_torch.dist.mesh.
+MeshError`, which, like :class:`~repro_torch.kernels._build.KernelError`,
+is neither retried nor quarantined: the world is lost (the process
+group's timeout is the backstop against a silent worker).  Each rank
+holds only its own shard of the image.  Deliberate difference: after
+:meth:`~ShardedEmbeddingServer.close` has stopped the workers, a flush
+raises instead of serving work that was still pending at close.
 """
 
 from __future__ import annotations
@@ -108,6 +134,7 @@ from repro_torch.core.reduction import (
     shard_block_queries,
 )
 from repro_torch.core.replication import plan_replication
+from repro_torch.dist.mesh import MeshError, ShardMesh
 from repro_torch.dist.replan import (
     PlanPatch,
     apply_plan_patch,
@@ -117,10 +144,14 @@ from repro_torch.dist.replan import (
 from repro_torch.dist.shard_plan import ShardPlan, build_fused_image, plan_shards
 from repro_torch.kernels._build import KernelError
 from repro_torch.kernels.sharded import (
+    COMBINES,
     combine_bytes_per_batch,
+    crossbar_reduce_sharded,
     crossbar_reduce_tables,
     dispatch_cache_stats,
+    distribute_shard_images,
     patch_shard_images,
+    result_bytes,
 )
 from repro_torch.serve.drift import DriftTracker, LoadObservationCache, ReplanConfig
 from repro_torch.serve.faults import (
@@ -227,6 +258,10 @@ class ShardedServeStats:
     paging_bytes: int = 0
     load_obs_hits: int = 0                 # drift-observation memo hits
     load_obs_misses: int = 0
+    # ---- mesh (one process per shard) ----
+    # point-to-point result sends to rank 0, outside combine_bytes; read
+    # by report()["mesh"], not summary() (the reference's keys)
+    result_bytes: int = 0
     # ---- failure/recovery accounting (DESIGN.md §8) ----
     ledger: ErrorLedger = dataclasses.field(default_factory=ErrorLedger)
 
@@ -357,13 +392,6 @@ class ShardedServeStats:
         }
 
 
-def _not_ported(what: str, slice_name: str):
-    return NotImplementedError(
-        f"{what} is not ported yet; it comes with the {slice_name} slice "
-        "of the PyTorch port"
-    )
-
-
 def _host_table(t: torch.Tensor) -> np.ndarray:
     """Host copy for the plan/image build and the CPU degrade path (bf16
     widens to float32, which the permutation-only image build carries
@@ -386,7 +414,8 @@ class ShardedEmbeddingServer:
         and its cold tier reads rows from.
       histories: ``{name: ragged lookup history}`` driving the offline
         pipeline (grouping + Eq.-1 replication) per table.
-      num_shards: shards to plan for; emulated on one device.
+      num_shards: shards to plan for; emulated on one device, or one
+        process each under ``mesh=``.
       q_block: queries per kernel block.
       group_size: crossbar height (tile rows).
       batch_size: auto-flush threshold for :meth:`submit`.
@@ -422,8 +451,15 @@ class ShardedEmbeddingServer:
       faults: optional :class:`~repro_torch.serve.faults.FaultPlan` or
         :class:`~repro_torch.serve.faults.FaultInjector` (DESIGN.md §8)
         consulted at the compile, dispatch, retire and patch seams.
-      mesh: one shard per device; not ported yet, anything but ``None``
-        raises ``NotImplementedError``.
+      mesh: a :class:`~repro_torch.dist.mesh.ShardMesh` of
+        ``num_shards`` ranks: the server runs on rank 0 and holds shard
+        0, every other rank runs :func:`serve_worker` (see the module
+        docstring); ``device`` must be of the mesh device's kind.
+        ``None`` emulates the shards on one device.
+      axis_name: the mesh axis the image shards over (``"model"``).
+      combine: the mesh's cross-shard collective, ``"psum_scatter"``
+        (reduce-scatter over the embedding dim + all-gather) or
+        ``"psum"``; the emulation ignores it.
     """
 
     def __init__(
@@ -439,7 +475,9 @@ class ShardedEmbeddingServer:
         combine_chunks: int = 2,
         dynamic_switch: bool = True,
         device="cuda",
-        mesh=None,
+        mesh: ShardMesh | None = None,
+        axis_name: str = "model",
+        combine: str = "psum_scatter",
         flush_policy: str | FlushPolicy = "global",
         union_budget: int | None = None,
         flush_deadline: int | None = None,
@@ -453,7 +491,26 @@ class ShardedEmbeddingServer:
         faults=None,
     ):
         if mesh is not None:
-            raise _not_ported("mesh= (one shard per device)", "torch.distributed")
+            if not isinstance(mesh, ShardMesh):
+                raise TypeError(
+                    "mesh= takes a repro_torch.dist.mesh.ShardMesh (one process "
+                    f"per shard), got {type(mesh).__name__}"
+                )
+            if mesh.rank != 0:
+                raise ValueError(
+                    f"the server runs on rank 0; rank {mesh.rank} runs serve_worker()"
+                )
+            if mesh.size != num_shards:
+                raise ValueError(
+                    f"mesh of {mesh.size} ranks for {num_shards} shards"
+                )
+            if torch.device(device).type != mesh.device.type:
+                raise ValueError(
+                    f"device {device!r} on a mesh whose device is {mesh.device}"
+                )
+            device = mesh.device
+        if combine not in COMBINES:
+            raise ValueError(f"unknown combine {combine!r}")
         if set(tables) != set(histories):
             raise ValueError("tables and histories must cover the same names")
         if not tables:
@@ -483,6 +540,12 @@ class ShardedEmbeddingServer:
         self.batch_size = batch_size
         self.combine_chunks = combine_chunks
         self.dynamic_switch = dynamic_switch
+        self.mesh = mesh
+        self.axis_name = axis_name
+        self.combine = combine
+        #: the mesh workers: "live", "stopped" (close() sent STOP) or
+        #: "lost" (a mesh operation failed)
+        self._mesh_state = "live"
         self.device = torch.device(device)
         #: every dispatch and the driver thread's loop run on this stream
         self._stream = (
@@ -550,11 +613,19 @@ class ShardedEmbeddingServer:
                 dtype=images.dtype,
             )
             images = np.concatenate([images, pad], axis=1)
-        #: (num_shards, capacity, tile_rows, dim) on the device; replaced
-        #: only when a plan patch grows or shrinks its depth
-        self.shard_images = torch.from_numpy(images).to(
-            device=self.device, dtype=self.dtype
-        )
+        #: (num_shards, capacity, tile_rows, dim) on the device, or this
+        #: rank's shard (1, ...) under a mesh; replaced only when a plan
+        #: patch grows or shrinks its depth
+        if mesh is None:
+            self.shard_images = torch.from_numpy(images).to(
+                device=self.device, dtype=self.dtype
+            )
+        else:
+            # each rank receives its shard once, here, outside any timed
+            # window; rank 0 keeps shard 0
+            with self._mesh_ops():
+                self._send_header(_OP_IMAGE)
+                self.shard_images = distribute_shard_images(images, mesh, self.dtype)
         del images
         # ---- online replanning state (DESIGN.md §6) ----
         self.replan_cfg = replan
@@ -787,11 +858,7 @@ class ShardedEmbeddingServer:
                 )
                 # a synchronous compile sits on the serving critical path
                 self.stats.record_compile(time.perf_counter() - tc, hidden=False)
-                outs = crossbar_reduce_tables(
-                    self.shard_images, sbq, spans,
-                    combine_chunks=self.combine_chunks,
-                    dynamic_switch=self.dynamic_switch,
-                )
+                outs = self._reduce(sbq, spans)
                 event = self._record_event()
             # the kernels are dispatched but not waited for: the drift
             # observation is host work on the CPU compile and overlaps them
@@ -851,7 +918,8 @@ class ShardedEmbeddingServer:
         """Fused host compile: per-table compile (block-granular replica
         choice) → rebase into the fused tile space → concat (blocks never
         span tables) → per-shard block compile for ``participants``
-        (``None`` = every shard), moved to the device.
+        (``None`` = every shard), moved to the device (kept on the CPU
+        under a mesh, whose ranks each take their own schedule).
 
         Returns ``(host_cq, sbq, spans)``: ``host_cq`` is the fused
         compile on the CPU, which the drift observation reads.
@@ -866,10 +934,81 @@ class ShardedEmbeddingServer:
             cqs.append(offset_compiled_queries(cq, self.plan.tables[i].tile_offset))
         fused_cq, spans = concat_compiled_queries(cqs, self.q_block)
         sbq = shard_block_queries(
-            fused_cq, self.plan, self.q_block,
-            participants=participants, device=self.device,
+            fused_cq, self.plan, self.q_block, participants=participants,
+            device="cpu" if self.mesh is not None else self.device,
         )
         return fused_cq, sbq, spans
+
+    # ------------------------------------------------------------- mesh --
+
+    def _reduce(self, sbq, spans) -> List[torch.Tensor]:
+        """Dispatches one compiled batch's kernels and combine: in
+        program when emulated, else across the mesh (:meth:`_reduce_mesh`)."""
+        if self.mesh is None:
+            return crossbar_reduce_tables(
+                self.shard_images, sbq, spans,
+                combine_chunks=self.combine_chunks,
+                dynamic_switch=self.dynamic_switch,
+            )
+        with self._mesh_ops():
+            return self._reduce_mesh(sbq, spans)
+
+    def _send_header(self, op: int, *values: int) -> None:
+        """Broadcasts one control header to the workers (rank 0 only)."""
+        if self._mesh_state != "live":
+            raise MeshError(
+                f"the mesh workers are {self._mesh_state}; this server "
+                "dispatches nothing more"
+            )
+        header = [op, *values]
+        header += [-1] * (_header_len(self.num_shards) - len(header))
+        self.mesh.broadcast_header(header)
+
+    @contextlib.contextmanager
+    def _mesh_ops(self):
+        """Marks the world lost when a mesh operation inside fails: no
+        later header (not even ``STOP``) is sent into it."""
+        try:
+            yield
+        except MeshError:
+            self._mesh_state = "lost"
+            raise
+
+    def _reduce_mesh(self, sbq, spans) -> List[torch.Tensor]:
+        """One mesh flush from the controller: the ``FLUSH`` header, each
+        participating worker's schedule (tile ids, and 0/1 bitmaps as
+        uint8) on the control plane, then rank 0's share of the SPMD
+        reduction over its own schedule (all ``-1`` when shard 0 does not
+        participate)."""
+        parts = [int(p) for p in sbq.shard_ids]
+        _, nb, max_tiles, q_block, tile_rows = sbq.bitmaps.shape
+        self._send_header(
+            _OP_FLUSH, nb, max_tiles, q_block, tile_rows, self.combine_chunks,
+            int(self.dynamic_switch), COMBINES.index(self.combine),
+            len(parts), *parts,
+        )
+        for p, s in enumerate(parts):
+            if s != 0:
+                self.mesh.send(sbq.tile_ids[p], s)
+                self.mesh.send(sbq.bitmaps[p].to(torch.uint8), s)
+        if 0 in parts:
+            p = parts.index(0)
+            ids = _upload(sbq.tile_ids[p], self.device)
+            bms = _upload(sbq.bitmaps[p], self.device)
+        else:
+            ids, bms = _empty_schedule(sbq.bitmaps.shape[1:], self.dtype, self.device)
+        own = dataclasses.replace(sbq, tile_ids=ids[None], bitmaps=bms[None],
+                                  shards=np.asarray(parts, dtype=np.int64))
+        self.stats.result_bytes += result_bytes(
+            self.num_shards, parts, nb * q_block, self.dim, self.combine,
+            self.shard_images.element_size(),
+        )
+        return crossbar_reduce_tables(
+            self.shard_images, own, spans, mesh=self.mesh,
+            axis_name=self.axis_name, combine=self.combine,
+            combine_chunks=self.combine_chunks,
+            dynamic_switch=self.dynamic_switch,
+        )
 
     # --------------------------------------------------------- replanning --
 
@@ -914,9 +1053,11 @@ class ShardedEmbeddingServer:
                 return
         patch, self._staged = self._staged, None
         self._patch_fail_streak = 0
-        with self._on_stream():
+        with self._on_stream(), self._mesh_ops():
+            if self.mesh is not None:
+                self._send_header(_OP_PATCH)
             self.shard_images = patch_shard_images(
-                self.shard_images, patch, self._fused
+                self.shard_images, patch, self._fused, mesh=self.mesh
             )
         self.plan = apply_plan_patch(self.plan, patch)
         self.stats.record_patch(patch, tile_bytes=self._tile_bytes)
@@ -1302,8 +1443,8 @@ class ShardedEmbeddingServer:
         for attempt in range(policy.max_retries + 1):
             try:
                 entry = self._compile_and_dispatch(entries, participants)
-            except KernelError:
-                raise  # the build or the card failed, not this batch
+            except (KernelError, MeshError):
+                raise  # the build, the card or the world failed, not this batch
             except Exception as e:
                 last = e
                 if t_first is None:
@@ -1401,11 +1542,7 @@ class ShardedEmbeddingServer:
                 self._injector.on_dispatch() if self._injector is not None
                 else None
             )
-            outs = crossbar_reduce_tables(
-                self.shard_images, sbq, spans,
-                combine_chunks=self.combine_chunks,
-                dynamic_switch=self.dynamic_switch,
-            )
+            outs = self._reduce(sbq, spans)
             event = self._record_event()
         return _InFlight(
             outs=outs, sbq=sbq, served=served,
@@ -1447,7 +1584,7 @@ class ShardedEmbeddingServer:
                     healed = self._heal_dispatch(
                         e.home, e.entries, e.participants
                     )
-                except KernelError:
+                except (KernelError, MeshError):
                     self.scheduler.requeue(e.home, e.entries)
                     raise
                 for entry in healed:
@@ -1701,6 +1838,9 @@ class ShardedEmbeddingServer:
         :data:`_CLOSE_JOIN_S`, and a producer blocked in a full hand-off
         ``put()`` is unblocked by the push-back loop.  Work still
         unserved at close is summarized into the ledger's ``lost_work``.
+        Under a mesh, ``STOP`` ends every worker's :func:`serve_worker`;
+        a later drain returns what was already served and raises if it
+        would have to dispatch.
         """
         with self._stamp_lock:
             already = self._closed
@@ -1753,6 +1893,10 @@ class ShardedEmbeddingServer:
         }
         if any(unserved.values()):
             self.stats.ledger.lost_work = unserved
+        if self.mesh is not None and self._mesh_state == "live":
+            # the workers leave serve_worker(); nothing is dispatched after
+            self._send_header(_OP_STOP)
+            self._mesh_state = "stopped"
 
     def __enter__(self) -> "ShardedEmbeddingServer":
         return self
@@ -1866,10 +2010,14 @@ class ShardedEmbeddingServer:
         Returns a dict with ``tables`` (sorted names), ``plan``
         (:meth:`ShardPlan.memory_summary`), ``serve``
         (:meth:`ShardedServeStats.summary`, the error ledger inside
-        ``serve["faults"]``), ``mode`` (``"emulated"``), ``retry`` (the
+        ``serve["faults"]``), ``mode`` (``"shard_map"`` under a mesh, as
+        the reference reports it, else ``"emulated"``), ``retry`` (the
         live :class:`RetryPolicy` knobs), ``dispatch_cache`` (the
-        reference's schema, all zero), ``device``, ``image_bytes`` (the
-        shard image stack on the device), with ``tiers=`` ``tiers``
+        reference's schema; the mesh's subgroup cache under
+        ``"mesh_subset"``), ``device``, ``image_bytes`` (the shard image
+        stack on the device; this rank's shard under a mesh), under a
+        mesh ``mesh`` (ranks, backend, combine, the point-to-point
+        ``result_bytes``), with ``tiers=`` ``tiers``
         (capacity, hysteresis, cold groups and tiles, resident groups,
         the host queue), with ``faults=`` ``faults`` (the plan and the
         per-seam attempt and injection counters), under an async policy
@@ -1882,12 +2030,20 @@ class ShardedEmbeddingServer:
             "tables": self.names,
             "plan": self.plan.memory_summary(),
             "serve": self.stats.summary(),
-            "mode": "emulated",
+            "mode": "shard_map" if self.mesh is not None else "emulated",
             "retry": dataclasses.asdict(self.retry),
-            "dispatch_cache": dispatch_cache_stats(),
+            "dispatch_cache": dispatch_cache_stats(self.mesh),
             "device": str(self.device),
             "image_bytes": self.shard_images.numel() * self.shard_images.element_size(),
         }
+        if self.mesh is not None:
+            rep["mesh"] = {
+                "ranks": self.mesh.size,
+                "backend": self.mesh.backend,
+                "combine": self.combine,
+                "result_bytes": self.stats.result_bytes,
+                "workers": self._mesh_state,
+            }
         if self.tiers is not None:
             plan = self.plan
             rep["tiers"] = {
@@ -1938,6 +2094,80 @@ class ShardedEmbeddingServer:
                 "demote_streak": self._demote_streak,
             }
         return rep
+
+
+# ---------------------------------------------------------------- mesh --
+
+#: control-plane header ops (see the module docstring)
+_OP_IMAGE, _OP_FLUSH, _OP_PATCH, _OP_STOP = 1, 2, 3, 4
+
+
+def _header_len(num_shards: int) -> int:
+    """A header is the op, eight FLUSH fields and the participants."""
+    return 9 + num_shards
+
+
+def _upload(t: torch.Tensor, device) -> torch.Tensor:
+    """A CPU tensor on ``device``; to a card through pinned memory with
+    ``non_blocking=True``, so the host waits for no queued kernel."""
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
+def _empty_schedule(shape, dtype, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A non-participant's schedule: ``(nb, max_tiles)`` ids all ``-1``
+    and zero ``(nb, max_tiles, q_block, tile_rows)`` bitmaps."""
+    ids = torch.full(tuple(shape[:2]), -1, dtype=torch.int32, device=device)
+    return ids, torch.zeros(tuple(shape), dtype=dtype, device=device)
+
+
+def serve_worker(mesh: ShardMesh) -> Dict[str, int]:
+    """The loop of every rank but 0 under a mesh server.
+
+    Blocks on the controller's headers and serves them until ``STOP``:
+    ``IMAGE`` receives this rank's image shard; ``FLUSH`` receives this
+    rank's schedule when it participates (a non-participant takes an
+    all ``-1`` one), runs the kernel and joins the combine; ``PATCH``
+    resizes the shard and writes its tiles of a plan patch.  Runs on the
+    device and stream current when called.  An exception propagates,
+    and the world is then lost: rank 0's next transfer fails, or times
+    out.
+
+    Returns:
+      ``{"flushes", "patches"}``: the counts served.
+    """
+    if mesh.rank == 0:
+        raise ValueError("rank 0 runs the ShardedEmbeddingServer, not serve_worker()")
+    image: Optional[torch.Tensor] = None
+    served = {"flushes": 0, "patches": 0}
+    n = _header_len(mesh.size)
+    while True:
+        op, *h = mesh.broadcast_header(length=n)
+        if op == _OP_STOP:
+            return served
+        if op == _OP_IMAGE:
+            image = distribute_shard_images(None, mesh)
+        elif op == _OP_PATCH:
+            image = patch_shard_images(image, None, None, mesh=mesh)
+            served["patches"] += 1
+        elif op == _OP_FLUSH:
+            nb, max_tiles, q_block, tile_rows, chunks, switch, combine, p = h[:8]
+            parts = h[8:8 + p]
+            shape = (nb, max_tiles, q_block, tile_rows)
+            if mesh.rank in parts:
+                ids = mesh.recv(shape[:2], torch.int32).to(mesh.device)
+                bms = mesh.recv(shape, torch.uint8).to(mesh.device).to(image.dtype)
+            else:
+                ids, bms = _empty_schedule(shape, image.dtype, mesh.device)
+            crossbar_reduce_sharded(
+                image, ids[None], bms[None], mesh=mesh,
+                combine=COMBINES[combine], combine_chunks=chunks,
+                dynamic_switch=bool(switch), shard_ids=parts,
+            )
+            served["flushes"] += 1
+        else:
+            raise MeshError(f"unknown control header op {op}")
 
 
 def _take_rows(rows: torch.Tensor, index: np.ndarray) -> torch.Tensor:

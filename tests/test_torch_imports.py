@@ -49,7 +49,8 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
                 "repro_torch.serve.batching", "repro_torch.launch.serve",
                 "repro_torch.serve.scheduler", "repro_torch.serve.producers",
                 "repro_torch.serve.faults", "repro_torch.serve.drift",
-                "repro_torch.dist.replan", "repro_torch.serve.tiers"):
+                "repro_torch.dist.replan", "repro_torch.serve.tiers",
+                "repro_torch.dist.mesh"):
         assert mod in res["modules"]
 
 

@@ -110,7 +110,8 @@ def test_bf16_tables_keep_their_dtype():
 
 
 @pytest.mark.parametrize("kwargs,error,match", [
-    ({"mesh": object()}, NotImplementedError, "torch.distributed"),
+    # mesh= is ported: it takes a ShardMesh, one process per shard
+    ({"mesh": object()}, TypeError, "ShardMesh"),
     # the async policies are ported: this case serves
     ({"flush_policy": "per-shard"}, None, None),
     # the reference's rule: the thread driver needs an async kind

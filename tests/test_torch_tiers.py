@@ -450,7 +450,7 @@ def test_tiers_imply_replan_and_close_reports_host_pending():
         assert srv.stats.ledger.lost_work["host_pending"] == 1
     got, want = port.drain(), ref.drain()
     np.testing.assert_array_equal(_rows(got["a"]), _rows(want["a"]))
-    with pytest.raises(NotImplementedError, match="torch.distributed"):
+    with pytest.raises(TypeError, match="ShardMesh"):
         ShardedEmbeddingServer(tables_from_numpy(tables, "cpu"), histories, device="cpu",
                                mesh=object(), tiers=TierConfig(capacity_frac=0.5))
 
