@@ -72,9 +72,20 @@ Phases, in order; any failure propagates and the process exits non-zero:
    and device faults, a poisoned query, a hang past the watchdog) on the
    card, the hang raising ``FlushTimeout`` and a later drain returning
    every row, equal to the CPU server's rows, retries and quarantine;
-   then a short hang that recovers with no timeout;
+   then a short hang that recovers with no timeout; analysis: the
+   integer-valued and chaos runs go under ``RECROSS_VALIDATE=1``, the
+   plans, patches and quiescent drains validated each counted (> 0 each);
+   every FULL server (serving, serving-async, serving-mesh (a) and
+   rank 0 of (b), serving-replan, serving-tiers) is validated with
+   ``validate_server_state(quiesced=True)`` once its timed window has
+   closed, its host seconds printed; the owner-set threaded
+   two-producer integer-valued run goes under
+   ``monitor_server(enforce=True)``, whose observed lock edges must run
+   forward in the blessed order and lie in ``analyze_locks()``'s graph;
 5. flat op: ``ops.crossbar_reduce`` on one table's compiled queries
-   against ``reduce_dense_oracle`` on the card;
+   against ``reduce_dense_oracle`` on the card; then the quickstart,
+   ``repro_torch.launch.quickstart.main(device="cuda")``, whose flat
+   kernel launch is held against the dense oracle;
 6. embedding-bag parity: the embedding-bag kernel against its plain
    version at small shapes (f32, bf16, f16, -1 padding) at the host
    rule's split and forced splits 1, 2 and 8 (against the split version),
@@ -106,7 +117,8 @@ Phases, in order; any failure propagates and the process exits non-zero:
    a profiled window.
 
 The kernels are built in parallel (one ``nvcc`` per source).  It then
-prints one ``{"kernels": [...]}`` line, the ``nvidia-smi`` line,
+prints the host seconds of each phase, one ``{"kernels": [...]}`` line,
+the ``nvidia-smi`` line,
 and as its last line ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or outside a checkout of the repository, it exits non-zero and
 prints no result.  It imports nothing of ``jax`` or ``repro``.
@@ -271,6 +283,68 @@ def bound(nbytes: int, flops: int, dtype: str) -> tuple[float, str]:
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def validate_full(server, tag: str) -> float:
+    """``validate_server_state(quiesced=True)`` on a drained FULL server,
+    after its timed window has closed; returns the host seconds."""
+    from repro_torch.analysis.invariants import validate_server_state
+
+    t0 = time.perf_counter()
+    validate_server_state(server, quiesced=True)
+    sec = time.perf_counter() - t0
+    log(f"analysis: {tag} FULL server validated in {sec:.4f} s")
+    return sec
+
+
+@contextlib.contextmanager
+def validated(counts: dict):
+    """``RECROSS_VALIDATE=1`` around untimed correctness runs, restored
+    after; counts in ``counts`` each validated plan (a fresh one, or a
+    patch's applied plan), patch and quiescent drain.  The plan a
+    server's validation checks counts with its drain."""
+    import os
+    import threading
+
+    from repro_torch.analysis import invariants
+
+    lock, inside = threading.Lock(), threading.local()
+    plan_fn, patch_fn = invariants.validate_plan, invariants.validate_patch
+    state_fn = invariants.validate_server_state
+
+    def count(key):
+        with lock:
+            counts[key] += 1
+
+    def plan(p):
+        if not getattr(inside, "state", False):
+            count("plans")
+        return plan_fn(p)
+
+    def patch(p, pt):
+        count("patches")
+        return patch_fn(p, pt)
+
+    def state(server, *, quiesced=False):
+        count("drains")
+        inside.state = True
+        try:
+            return state_fn(server, quiesced=quiesced)
+        finally:
+            inside.state = False
+
+    prev = os.environ.get("RECROSS_VALIDATE")
+    os.environ["RECROSS_VALIDATE"] = "1"
+    try:
+        with mock.patch.object(invariants, "validate_plan", plan), \
+                mock.patch.object(invariants, "validate_patch", patch), \
+                mock.patch.object(invariants, "validate_server_state", state):
+            yield counts
+    finally:
+        if prev is None:
+            del os.environ["RECROSS_VALIDATE"]
+        else:
+            os.environ["RECROSS_VALIDATE"] = prev
 
 
 def parity(torch, timer, name, image, tile_ids, bitmaps, *, dynamic_switch=True,
@@ -450,6 +524,7 @@ def phase_serving(torch, np, timer):
         results[n].append(rows_out)
     wall = time.perf_counter() - t0
     launches = crossbar_reduce_cuda.launches
+    validate_s = validate_full(server, "serving")
     server.close()
     rep = server.report()["serve"]
     if launches <= 0:
@@ -485,7 +560,7 @@ def phase_serving(torch, np, timer):
         "host_compile_s": rep["host_compile_s"],
         "kernel_launches": launches, "launches_per_flush": launches / flushes,
         "max_shard_width": rep["max_shard_width"],
-        "sampled_rows": SAMPLE_ROWS, "sample_max_abs_err": err,
+        "sampled_rows": SAMPLE_ROWS, "sample_max_abs_err": err, "validate_s": validate_s,
     }
     log("serving", json.dumps(stats))
 
@@ -594,6 +669,7 @@ def phase_serving_async(torch, np, tables, histories, streams, served) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = crossbar_reduce_cuda.launches
+        validate_s = validate_full(server, "serving-async")
         # read before busy_stream_dispatch adds a compile outside the wall
         rep = server.report()
         busy = busy_stream_dispatch(torch, server, dispatch, order, rows_global)
@@ -648,7 +724,7 @@ def phase_serving_async(torch, np, tables, histories, streams, served) -> dict:
         "dispatches": dispatched["flushes"], "pending_at_dispatch_return": dispatched["pending"],
         "busy_stream_dispatch": busy,
         "max_abs_err_vs_global": err, "sampled_rows": SAMPLE_ROWS,
-        "sample_max_abs_err": oracle_err, "faults": s["faults"],
+        "sample_max_abs_err": oracle_err, "faults": s["faults"], "validate_s": validate_s,
     }
     log("serving-async", json.dumps(stats))
     return stats, out
@@ -748,6 +824,7 @@ def phase_serving_mesh(torch, np, tables, histories, streams, served, async_stat
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches_a = crossbar_reduce_cuda.launches
+            validate_a = validate_full(server, "serving-mesh (a)")
             server.close()
             rep = server.report()
         finally:
@@ -766,7 +843,8 @@ def phase_serving_mesh(torch, np, tables, histories, streams, served, async_stat
                       "queries": s["queries"], "wall_s": wall,
                       "queries_per_s": s["queries"] / wall, "kernel_launches": launches_a,
                       "combine_bytes": s["combine_bytes"],
-                      "result_bytes": rep["mesh"]["result_bytes"], "bit_identical": True}
+                      "result_bytes": rep["mesh"]["result_bytes"], "bit_identical": True,
+                      "validate_s": validate_a}
         log("serving-mesh (a)", json.dumps(stats["a"]))
         del out
         torch.cuda.empty_cache()
@@ -835,6 +913,7 @@ def _mesh_world4(torch, np, tables, histories, streams, order, async_stats, asyn
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches0 = crossbar_reduce_cuda.launches
+            validate_b = validate_full(server, "serving-mesh (b) rank 0")
         finally:
             server.close()
         mesh.record_combine = False
@@ -906,7 +985,7 @@ def _mesh_world4(torch, np, tables, histories, streams, order, async_stats, asyn
         "subgroups": rep["dispatch_cache"]["mesh_subset"],
         "kernel_launches": launches, "launches_per_rank": per_rank,
         "max_abs_err_vs_serving_async": err, "sampled_rows": SAMPLE_ROWS,
-        "sample_max_abs_err": oracle_err, "bits": bits,
+        "sample_max_abs_err": oracle_err, "bits": bits, "validate_s": validate_b,
     }
     log("serving-mesh (b)", json.dumps(stats))
     return stats
@@ -1016,7 +1095,8 @@ def check_image_slots(torch, np, server, written, gen, tag="serving-replan") -> 
     plan, images = server.plan, server.shard_images
     cap = images.shape[1]
     shard, tile = np.nonzero(plan.local_tile_of >= 0)
-    key = shard * cap + plan.local_tile_of[shard, tile].astype(np.int64)
+    # raises if an allocated slot falls off the image
+    key = np.ravel_multi_index((shard, plan.local_tile_of[shard, tile]), (images.shape[0], cap))
     by_key = np.argsort(key)
     key, tile = key[by_key], tile[by_key]
     written = np.unique(np.asarray(sorted(written), dtype=np.int64))
@@ -1160,6 +1240,7 @@ def phase_serving_replan(torch, np, timer, tables, histories, served, async_stat
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = crossbar_reduce_cuda.launches
+        validate_s = validate_full(server, "serving-replan")
         rep = server.report()
         obs = list(obs_s)
         written = {(k // 10**9) * server.shard_images.shape[1] + k % 10**9 for k in written}
@@ -1255,7 +1336,7 @@ def phase_serving_replan(torch, np, timer, tables, histories, served, async_stat
         "drift_after": rep["replan"]["drift"], "slack_slots": rep["replan"]["slack_slots"],
         "kernel_launches": launches, **slots, "busy_stream_dispatch": busy,
         "max_abs_err_vs_global": err_global, "sampled_rows": SAMPLE_ROWS,
-        "sample_max_abs_err": oracle_err, "faults": s["faults"],
+        "sample_max_abs_err": oracle_err, "faults": s["faults"], "validate_s": validate_s,
     }
     log("serving-replan", json.dumps(stats))
     return stats
@@ -1390,6 +1471,7 @@ def phase_serving_tiers(torch, np, tables, histories, served, replan_stats) -> d
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = crossbar_reduce_cuda.launches
+        validate_s = validate_full(server, "serving-tiers")
         rep = server.report()
         written = {(k // 10**9) * server.shard_images.shape[1] + k % 10**9 for k in written}
         slots = check_image_slots(torch, np, server, written, np.random.default_rng(19),
@@ -1485,7 +1567,7 @@ def phase_serving_tiers(torch, np, tables, histories, served, replan_stats) -> d
         "host_loads_s_total": sum(timing["loads_s"]),
         "kernel_launches": launches, **slots,
         "max_abs_err_vs_global": err_global, "sampled_rows": SAMPLE_ROWS,
-        "sample_max_abs_err": oracle_err, "faults": s["faults"],
+        "sample_max_abs_err": oracle_err, "faults": s["faults"], "validate_s": validate_s,
     }
     log("serving-tiers", json.dumps(stats))
     return stats
@@ -1586,6 +1668,24 @@ def bits_slices(stream, names) -> dict:
     return slices
 
 
+def check_lock_monitor(graph, tag: str) -> dict:
+    """The monitored run's acquisition edges must all run forward in the
+    blessed order and be edges the static pass over ``repro_torch/serve``
+    knows; returns both edge sets."""
+    from repro_torch.analysis import analyze_locks
+
+    static = sorted({(e.held, e.acquired) for e in analyze_locks().edges})
+    observed = sorted(graph.edge_set())
+    out = {"observed_edges": observed, "static_edges": static,
+           "blessed_violations": graph.check_blessed()}
+    log(f"analysis: lock monitor on {tag}", json.dumps(out))
+    if out["blessed_violations"] or not observed or not set(observed) <= set(static):
+        raise AssertionError(f"lock monitor on {tag}: {out['blessed_violations']}, observed "
+                             f"edges outside the static graph "
+                             f"{sorted(set(observed) - set(static))}")
+    return out
+
+
 def phase_async_bits(torch, np) -> dict:
     """Integer-valued tables on the card: one seeded stream served under
     global, per-shard, deadline and owner-set inline, and owner-set on the
@@ -1601,6 +1701,7 @@ def phase_async_bits(torch, np) -> dict:
     the same host queries and fetched and evicted tiles; and once more
     (owner-set inline) with the first two patch applies failing at the
     injector's patch seam."""
+    from repro_torch.analysis import monitor_server
     from repro_torch.convert import tables_from_numpy
     from repro_torch.core import reduce_dense_oracle
     from repro_torch.kernels.crossbar_reduce import crossbar_reduce_cuda
@@ -1614,6 +1715,7 @@ def phase_async_bits(torch, np) -> dict:
                  "evicted_tiles")
     runs, uncapped = {}, {}
     launches = 0
+    monitor = None
     patch_fault = ("owner-set/patch-fault", "owner-set", False)
     for mode in ("plain", "replan", "tiers"):
         stream = drift_stream(np, base, BITS_ROWS, DRIFT_SEED) if mode != "plain" else base
@@ -1637,10 +1739,15 @@ def phase_async_bits(torch, np) -> dict:
                                               threaded=threaded, device=device, **kw)
 
             server = build(DEVICE, tables)
+            # the two-producer thread-driver run takes the card's threads
+            # under the lock monitor, raising on a backwards acquisition
+            graph = monitor_server(server, enforce=True) if threaded and mode == "plain" else None
             crossbar_reduce_cuda.launches = 0
             out = serve_bits(torch, server, names, stream, slices, threaded, submit)
             launches += crossbar_reduce_cuda.launches
             tag = label if mode == "plain" else f"{label}/{mode}"
+            if graph is not None:
+                monitor = check_lock_monitor(graph, tag)
             for n in names:
                 if not torch.equal(out[n], oracle[n]):
                     bad = float((out[n] - oracle[n]).abs().max().item())
@@ -1691,7 +1798,7 @@ def phase_async_bits(torch, np) -> dict:
             runs[tag].update(counts, capacity=int(server.shard_images.shape[1]))
     stats = {"rows": BITS_ROWS, "queries": len(base), "shards": ASYNC_SHARDS,
              "tier_capacity_frac": TIER_BITS_FRAC, "runs": runs,
-             "kernel_launches": launches, "bit_identical": True}
+             "kernel_launches": launches, "bit_identical": True, "lock_monitor": monitor}
     log("serving-async-bits", json.dumps(stats))
     return stats
 
@@ -2370,6 +2477,7 @@ def phase_lm(torch, np, timer) -> dict:
     from repro_torch.serve.kvcache import cache_bytes, init_cache
 
     cfg = get_config(LM_ARCH)
+    gen = torch.Generator(device=DEVICE).manual_seed(3)
     t0 = time.perf_counter()
     params, cache = ls.build(cfg, LM_SLOTS, LM_MAX_SEQ, kv_int8=True, device=DEVICE)
     torch.cuda.synchronize()
@@ -2425,7 +2533,7 @@ def phase_lm(torch, np, timer) -> dict:
     length = int(cache["len"].item())
     layer = (cache["k"][0], cache["k_scale"][0], cache["v"][0], cache["v_scale"][0])
     qg = torch.randn((LM_SLOTS, cfg.kv_heads, cfg.q_per_kv, cfg.resolved_head_dim),
-                     device=DEVICE).to(torch.bfloat16)
+                     generator=gen, device=DEVICE).to(torch.bfloat16)
     served = da_parity(torch, "served-layer", (qg, layer[0], layer[1], layer[2], layer[3]),
                        length)
     ln = torch.tensor(length, dtype=torch.int32, device=DEVICE)
@@ -2457,6 +2565,28 @@ def phase_lm(torch, np, timer) -> dict:
     return stats
 
 
+def phase_quickstart(torch) -> dict:
+    """``repro_torch.launch.quickstart.main`` on the card: the flat
+    crossbar kernel over 32 queries, which ``main`` holds against the
+    dense oracle at the quickstart's tolerance; its launches counted."""
+    from repro_torch.kernels.crossbar_reduce import crossbar_reduce_cuda
+    from repro_torch.launch import quickstart
+
+    crossbar_reduce_cuda.launches = 0
+    res = quickstart.main(device=DEVICE)
+    torch.cuda.synchronize()
+    launches = crossbar_reduce_cuda.launches
+    out = res.pop("out")
+    if (launches <= 0 or not out.is_cuda or not bool(torch.isfinite(out).all())
+            or out.shape != (quickstart.KERNEL_QUERIES, quickstart.DIM)
+            or not res["max_abs_err"] <= quickstart.ATOL):
+        raise AssertionError(f"quickstart: {launches} launches, device {out.device}, "
+                             f"shape {tuple(out.shape)}, max_abs_err {res['max_abs_err']}")
+    stats = {**res, "atol": quickstart.ATOL, "launches": launches}
+    log("quickstart", json.dumps(stats))
+    return stats
+
+
 def kernel_entry(name, source, replaces, launches, row) -> dict:
     return {
         "name": name, "route": "cuda", "source": source,
@@ -2477,7 +2607,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is available")
     sys.path.insert(0, str(SRC))
+    import os
+
     import numpy as np
+
+    # the timed phases run unvalidated; validated() turns the validators
+    # on around the untimed correctness runs only
+    os.environ["RECROSS_VALIDATE"] = "0"
 
     t_start = time.perf_counter()
     smi = nvidia_smi()
@@ -2499,36 +2635,73 @@ def main() -> int:
         for line in ptxas_summary(build_log):
             log(f"ptxas: {line}")
 
+    # host seconds of each phase since the previous mark (build included)
+    phase_s, last = {}, [t_start]
+
+    def mark(name):
+        now = time.perf_counter()
+        phase_s[name] = now - last[0]
+        last[0] = now
+
+    mark("build")
     timer = Timer(torch)
     phase_parity(torch, timer)
+    mark("parity")
     serving, serving_row, server, tables, streams, histories, served = phase_serving(
         torch, np, timer)
+    mark("serving")
     serving_async, async_rows = phase_serving_async(torch, np, tables, histories, streams,
                                                     served)
     torch.cuda.empty_cache()
+    mark("serving-async")
     serving_mesh = phase_serving_mesh(torch, np, tables, histories, streams, served,
                                       serving_async, async_rows)
     del async_rows
     torch.cuda.empty_cache()
+    mark("serving-mesh")
     serving_replan = phase_serving_replan(torch, np, timer, tables, histories, served,
                                           serving_async)
     torch.cuda.empty_cache()
+    mark("serving-replan")
     serving_tiers = phase_serving_tiers(torch, np, tables, histories, served, serving_replan)
     del served
     torch.cuda.empty_cache()
-    phase_async_bits(torch, np)
-    phase_chaos_bits(torch, np)
+    mark("serving-tiers")
+    # the untimed correctness runs go under the validators
+    counts = {"plans": 0, "patches": 0, "drains": 0}
+    with validated(counts):
+        bits = phase_async_bits(torch, np)
+        phase_chaos_bits(torch, np)
     torch.cuda.empty_cache()
+    mark("validated bits and chaos")
+    full_s = {"serving": serving["validate_s"], "serving-async": serving_async["validate_s"],
+              "serving-mesh (a)": serving_mesh["a"]["validate_s"],
+              "serving-mesh (b) rank 0": serving_mesh["b"]["validate_s"],
+              "serving-replan": serving_replan["validate_s"],
+              "serving-tiers": serving_tiers["validate_s"]}
+    analysis = {"validated_counts": counts,
+                "validated_runs_s": phase_s["validated bits and chaos"],
+                "full_validate_s": full_s, "lock_monitor": bits["lock_monitor"]}
+    log("analysis", json.dumps(analysis))
+    if min(counts["plans"], counts["patches"], counts["drains"]) <= 0:
+        raise AssertionError(f"analysis: a validator never ran: {counts}")
     flat = phase_flat(torch, timer, server, tables, streams)
+    mark("flat")
+    quick = phase_quickstart(torch)
+    mark("quickstart")
     eb_row = phase_embedding_bag(torch, timer)
+    mark("embedding-bag")
     dlrm = phase_dlrm(torch, np, timer, server, tables, histories)
+    mark("dlrm")
     # the LM phases start from an empty card: their peak memory is their own
     del server, tables, streams, histories
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     da_row = phase_decode_kernel(torch, timer)
+    mark("decode-kernel")
     torch.cuda.reset_peak_memory_stats()
     lm = phase_lm(torch, np, timer)
+    mark("lm")
 
     crossbar_src = "src/repro_torch/kernels/csrc/crossbar_reduce.cu"
     kernels = [
@@ -2540,10 +2713,11 @@ def main() -> int:
                      + serving_mesh["kernel_launches"]
                      + serving_replan["kernel_launches"] + serving_tiers["kernel_launches"],
                      serving_row),
-        # launches over the flat-op and DLRM phases
+        # launches over the flat-op, quickstart and DLRM phases
         kernel_entry("crossbar_reduce_flat", crossbar_src,
                      "src/repro/kernels/crossbar_reduce.py:54",
-                     flat["launches"] + dlrm["crossbar_launches"], flat["row"]),
+                     flat["launches"] + quick["launches"] + dlrm["crossbar_launches"],
+                     flat["row"]),
         kernel_entry("embedding_bag", "src/repro_torch/kernels/csrc/embedding_bag.cu",
                      "src/repro/kernels/embedding_bag.py:57",
                      dlrm["embedding_bag_launches"], eb_row),
@@ -2552,6 +2726,7 @@ def main() -> int:
                      "src/repro/kernels/decode_attention.py:94",
                      lm["kernel_launches"], da_row),
     ]
+    log("phases", json.dumps(phase_s))
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -41,7 +41,12 @@ from repro_torch.core.dynamic_switch import (
     torch_select_mode,
 )
 from repro_torch.core.energy import DEFAULT_RERAM, ReRAMCostModel
-from repro_torch.core.simulator import SimReport, simulate_batch, simulate_nmars_baseline
+from repro_torch.core.simulator import (
+    SimReport,
+    simulate_batch,
+    simulate_cpu_baseline,
+    simulate_nmars_baseline,
+)
 from repro_torch.core import baselines
 
 __all__ = [
@@ -56,6 +61,6 @@ __all__ = [
     "READ_MODE", "MAC_MODE", "popcount", "select_mode", "torch_select_mode",
     "energy_breakeven_rows", "mode_statistics",
     "ReRAMCostModel", "DEFAULT_RERAM",
-    "SimReport", "simulate_batch", "simulate_nmars_baseline",
+    "SimReport", "simulate_batch", "simulate_cpu_baseline", "simulate_nmars_baseline",
     "baselines",
 ]

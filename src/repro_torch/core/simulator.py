@@ -24,8 +24,8 @@ Python loop used — so the accumulated floats are bit-identical to the loop
 (kept as :func:`_reference_simulate_batch` for the equivalence tests) and
 100k-query histories replay in milliseconds instead of minutes.
 
-A NumPy copy of ``repro.core.simulator`` (without its CPU gather-sum
-baseline); the port never imports the JAX package.
+A NumPy copy of ``repro.core.simulator``; the port never imports the JAX
+package.
 """
 
 from __future__ import annotations
@@ -202,6 +202,42 @@ def _reference_simulate_batch(
         stall_ns=max(completion - ideal, 0.0),
         per_query_tiles=per_query_tiles,
         mean_active_rows=active_rows_sum / max(activations, 1),
+    )
+
+
+def simulate_cpu_baseline(
+    queries: Sequence[Sequence[int]],
+    *,
+    model: ReRAMCostModel = DEFAULT_RERAM,
+    parallel_lanes: int = 8,
+) -> SimReport:
+    """CPU gather-sum baseline (Fig. 11): DRAM row fetches + host adds.
+
+    ``parallel_lanes`` models the memory-level parallelism of a desktop
+    CPU's load queue; energy is charged per fetched row regardless.
+    ``mean_active_rows`` reports the true mean unique rows fetched per
+    query (the Fig. 11 comparison axis), not a placeholder.
+    """
+    per_query = np.fromiter(
+        (len(set(int(r) for r in q)) for q in queries), np.int64, len(queries)
+    )
+    lane_busy = np.zeros(parallel_lanes, dtype=np.float64)
+    energy = 0.0
+    for rows in per_query:
+        lat, e = model.cpu_reduction_event(int(rows))
+        lane = int(np.argmin(lane_busy))
+        lane_busy[lane] += lat
+        energy += e
+    total_rows = int(per_query.sum())
+    return SimReport(
+        completion_time_ns=float(lane_busy.max()),
+        energy_pj=energy,
+        activations=total_rows,
+        read_activations=total_rows,
+        mac_activations=0,
+        stall_ns=0.0,
+        per_query_tiles=per_query,
+        mean_active_rows=float(per_query.mean()) if per_query.size else 0.0,
     )
 
 

@@ -38,9 +38,9 @@ is fixed: promotions that would grow the image are deferred, and slack
 age-out is skipped.  The server's ``tiers=`` that drives this branch
 comes with a later slice of the port; the function is complete here.
 
-The reference's opt-in ``RECROSS_VALIDATE`` hook in
-:func:`apply_plan_patch` is left out (``repro.analysis`` is not ported
-yet), as in :mod:`repro_torch.dist.shard_plan`.
+With ``RECROSS_VALIDATE`` set, :func:`apply_plan_patch` validates the
+patch before and the plan after every apply
+(:mod:`repro_torch.analysis.invariants`).
 """
 
 from __future__ import annotations
@@ -845,6 +845,19 @@ def apply_plan_patch(plan: ShardPlan, patch: PlanPatch) -> ShardPlan:
     between flushes).  Only placement arrays change: the fused tile
     space, table segments and ``group_copies`` carry over by reference.
     """
+    # opt-in structural validation at the apply barrier
+    # (RECROSS_VALIDATE=1, DESIGN.md §12); lazy import: analysis
+    # imports this module's package at its own top level
+    from repro_torch.analysis.invariants import (
+        validate_patch,
+        validate_plan,
+        validation_enabled,
+    )
+
+    validate = validation_enabled()
+    if validate:
+        validate_patch(plan, patch)
+
     S = plan.num_shards
     tile_base = _group_tile_base(plan)
     copies = plan.group_copies
@@ -908,7 +921,7 @@ def apply_plan_patch(plan: ShardPlan, patch: PlanPatch) -> ShardPlan:
             )
         local[s, t] = new
 
-    return ShardPlan(
+    out = ShardPlan(
         num_shards=S,
         tables=plan.tables,
         replicated_group=replicated,
@@ -920,3 +933,6 @@ def apply_plan_patch(plan: ShardPlan, patch: PlanPatch) -> ShardPlan:
         group_copies=copies,
         capacity_tiles=plan.capacity_tiles,
     )
+    if validate:
+        validate_plan(out)
+    return out

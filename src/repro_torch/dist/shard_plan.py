@@ -39,8 +39,9 @@ are planned resident; the rest are **cold**: ``shard_of_group`` /
 allocates a local slot.  Cold groups are served by the host gather+sum
 fallback and can be paged in later by fetch/evict plan patches.
 
-A NumPy copy of ``repro.dist.shard_plan`` without its opt-in validation
-hook (``repro.analysis`` is not ported yet).
+A NumPy copy of ``repro.dist.shard_plan``; :func:`plan_shards` validates
+every fresh plan when ``RECROSS_VALIDATE`` is set
+(:mod:`repro_torch.analysis.invariants`).
 """
 
 from __future__ import annotations
@@ -422,6 +423,12 @@ def plan_shards(
         group_copies=copies,
         capacity_tiles=capacity_tiles,
     )
+    # opt-in structural validation (RECROSS_VALIDATE=1, DESIGN.md §12);
+    # lazy import: analysis imports this module at its own top level
+    from repro_torch.analysis.invariants import validate_plan, validation_enabled
+
+    if validation_enabled():
+        validate_plan(plan)
     return plan
 
 

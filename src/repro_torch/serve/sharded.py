@@ -1994,6 +1994,17 @@ class ShardedEmbeddingServer:
                             and (self._host_queue is None
                                  or len(self._host_queue) == 0)
                             and not any(self._completed.values())):
+                        # opt-in structural validation at quiescence
+                        # (RECROSS_VALIDATE=1, DESIGN.md §12) — the one
+                        # moment every invariant must hold at once; it
+                        # reads device tensors by shape only
+                        from repro_torch.analysis.invariants import (
+                            validate_server_state,
+                            validation_enabled,
+                        )
+
+                        if validation_enabled():
+                            validate_server_state(self, quiesced=True)
                         self._registry.reset_seqs()
         return out
 

@@ -50,7 +50,8 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
                 "repro_torch.serve.scheduler", "repro_torch.serve.producers",
                 "repro_torch.serve.faults", "repro_torch.serve.drift",
                 "repro_torch.dist.replan", "repro_torch.serve.tiers",
-                "repro_torch.dist.mesh"):
+                "repro_torch.dist.mesh", "repro_torch.analysis",
+                "repro_torch.analysis.__main__", "repro_torch.launch.quickstart"):
         assert mod in res["modules"]
 
 

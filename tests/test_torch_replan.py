@@ -24,6 +24,7 @@ import torch
 
 import repro.core as jcore
 import repro.dist as jdist
+from repro.analysis.invariants import InvariantViolation as JaxViolation
 from repro.core.cooccurrence import CoOccurrenceGraph as JaxGraph
 from repro.data import zipf_queries
 from repro.dist.replan import PagingPolicy as JaxPaging
@@ -34,6 +35,7 @@ from repro.kernels import patch_shard_images as jax_patch_images
 from repro.serve import ReplanConfig as JaxReplan
 from repro.serve import ShardedEmbeddingServer as JaxServer
 from repro_torch import core
+from repro_torch.analysis.invariants import InvariantViolation
 from repro_torch.convert import tables_from_numpy
 from repro_torch.core.cooccurrence import CoOccurrenceGraph
 from repro_torch.dist import (
@@ -303,12 +305,24 @@ def test_demotion_target_matches_reference(g0_load, owner):
     _assert_valid_partition(sp2)
 
 
-def test_apply_plan_patch_rejects_what_the_reference_rejects():
-    sp = _hand_plan(ShardPlan, TableSegment)
+def test_apply_plan_patch_rejects_what_the_reference_rejects(monkeypatch):
+    sp, jsp = _hand_plan(ShardPlan, TableSegment), _hand_plan(JaxPlan, JaxSegment)
     patch = compute_plan_patch(sp, np.array([0.0, 1.0, 1.0, 20.0]), eq1_batch=2)
-    twice = apply_plan_patch(sp, patch)
+    twice, jtwice = apply_plan_patch(sp, patch), jdist.apply_plan_patch(jsp, patch)
+    # validated (RECROSS_VALIDATE=1): the patch is refused before the
+    # apply, with the reference's message
+    monkeypatch.setenv("RECROSS_VALIDATE", "1")
+    with pytest.raises(InvariantViolation, match="not replicated") as port:
+        apply_plan_patch(twice, patch)
+    with pytest.raises(JaxViolation, match="not replicated") as ref:
+        jdist.apply_plan_patch(jtwice, patch)
+    assert str(port.value) == str(ref.value)
+    # unvalidated: the apply's own check refuses it
+    monkeypatch.setenv("RECROSS_VALIDATE", "0")
     with pytest.raises(ValueError, match="not replicated"):
         apply_plan_patch(twice, patch)
+    with pytest.raises(ValueError, match="not replicated"):
+        jdist.apply_plan_patch(jtwice, patch)
     with pytest.raises(ValueError, match="no group_copies"):
         compute_plan_patch(ShardPlan(**{**sp.__dict__, "group_copies": None}),
                            sp.group_load, eq1_batch=2)
