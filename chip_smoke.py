@@ -105,16 +105,30 @@ Phases, in order; any failure propagates and the process exits non-zero:
    equal the dense path's, and loss and every gradient equal autograd
    through the plain versions; then 20 SGD steps through
    ``launch.train_dlrm.train`` with finite losses;
-8. flash-decode parity: the kernel against its plain version at five
+8. flash-decode parity: the kernel against its plain version at six
    shapes, f32 and bf16, lengths 0, 1, S/3 + 7 and S (and 64, 65, 574 at
-   the served shape), each at forced split counts 1, 2, 7 and the host
+   the served shape, 15, 16, 31, 32 at lm-train's b 4, S 4,096), each at
+   forced split counts 1, 2, 7 and the host
    rule's; then timed (split kernel and merge together) at the served
    shape (b 8, S 4,096, length 574) and one ``decode_32k`` layer, beside
    its bound, one split, its plain version and SDPA;
 9. LM: ``chatglm3-6b`` FULL decode with an int8 cache through the
    kernel: logits against the plain version and a bf16 cache, 16
    requests served, 28 launches a step, the kernel at the served layer,
-   a profiled window.
+   a profiled window;
+10. LM training: ``chatglm3-6b`` at its published widths cut to 4 of 28
+   layers (bf16, AdamW), trained through ``launch.train.train``: 8 steps
+   of 8 x 512 ``TokenBatcher`` tokens (steps 4-7 over 2 microbatches),
+   then one step of 2 x 4,096 through ``chunked_self_attention``; checks:
+   the smoke config's 3 steps on the card against the CPU, the chunked
+   against the full attention at 4,096 tokens, the bf16 against the f32
+   step-0 loss, a crash at step 6 restored from the step-4 checkpoint on
+   disk and replayed bit for bit against an uninterrupted run (both with
+   deterministic algorithms on; the timed steps run with them off, as
+   ``launch.train`` does), and the restored weights served with an int8
+   cache through the flash-decode kernel, their logits over 4 steps
+   bit-equal to the in-memory weights' and within bf16 tolerance of the
+   plain version's.
 
 The kernels are built in parallel (one ``nvcc`` per source).  It then
 prints the host seconds of each phase, one ``{"kernels": [...]}`` line,
@@ -129,6 +143,8 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -204,6 +220,21 @@ DECODE_32K = (128, 32_768, 2, 16, 128)  # one decode_32k layer: b, S, kvh, g, hd
 DA_TOL = {"m": 1e-5, "l": 1e-4, "out": 1e-4}  # tests/test_decode_kernel.py
 DA_SPLITS = (1, 2, 7, None)            # forced split counts, then the host rule
 LM_SERVED_LEN = 574                    # the cache length LM serving ends at
+# lm-train: chatglm3-6b at its published widths, 4 of 28 layers (at 28
+# the AdamW state alone, 6.24 B x 12 B, would nearly fill the 80 GB card)
+LM_TRAIN_LAYERS = 4
+LM_TRAIN_BATCH = (8, 512)              # steps 0-7: batch x tokens
+LM_TRAIN_LONG = (2, 4_096)             # step 8: crosses CHUNKED_ATTN_THRESHOLD
+LM_TRAIN_STEPS = 8
+LM_TRAIN_MB_FROM = 4                   # steps 4-7 accumulate over 2 microbatches
+LM_TRAIN_LR = 3e-4
+LM_TRAIN_SAVE_EVERY = 4
+LM_TRAIN_CRASH_AT = 6                  # injected failure: restore step 4, replay 4-7
+LM_TRAIN_CPU_STEPS = 3                 # the smoke config on the card against the CPU
+LM_TRAIN_LOSS_RTOL = 0.02              # bf16 against f32 step-0 loss
+LM_TRAIN_SERVE = (4, 4_096, 4, 16, 16)  # slots, max_seq, requests, prompt, new
+STEP_TOL = {"atol": 1e-4, "rtol": 1e-4}  # tests/test_torch_lm_decode.py
+BF16_TOL = {"atol": 0.15, "rtol": 1e-2}  # tests/test_kernels.py:34
 
 
 def log(*parts) -> None:
@@ -303,7 +334,6 @@ def validated(counts: dict):
     after; counts in ``counts`` each validated plan (a fresh one, or a
     patch's applied plan), patch and quiescent drain.  The plan a
     server's validation checks counts with its drain."""
-    import os
     import threading
 
     from repro_torch.analysis import invariants
@@ -2386,12 +2416,15 @@ def phase_decode_kernel(torch, timer) -> dict:
     and at the served shape."""
     gen = torch.Generator(device=DEVICE).manual_seed(2)
     shapes = [(1, 256, 1, 1, 128), (2, 1024, 2, 4, 128), (2, 512, 4, 2, 64),
-              (1, 512, 2, 8, 256), (LM_SLOTS, LM_MAX_SEQ, 2, 16, 128)]
+              (1, 512, 2, 8, 256), (LM_SLOTS, LM_MAX_SEQ, 2, 16, 128),
+              (*LM_TRAIN_SERVE[:2], 2, 16, 128)]
     worst, cases = 0.0, 0
     for b, S, kvh, g, hd in shapes:
         lengths = [0, 1, S // 3 + 7, S]
         if (b, S) == (LM_SLOTS, LM_MAX_SEQ):   # the lengths LM serving reaches
             lengths += [64, 65, LM_SERVED_LEN]
+        if (b, S) == LM_TRAIN_SERVE[:2]:       # those lm-train's serving reaches
+            lengths += [15, 16, 31, 32]
         for dtype in (torch.float32, torch.bfloat16):
             inputs = da_case(torch, gen, b, S, kvh, g, hd, dtype)
             for length in lengths:
@@ -2400,7 +2433,7 @@ def phase_decode_kernel(torch, timer) -> dict:
                     worst = max(worst, row["max_abs_err"])
                     cases += 1
         log("da-parity", json.dumps(row))
-    log(f"da-parity: {cases} cases (5 shapes x 2 dtypes x 4-7 lengths x n_split "
+    log(f"da-parity: {cases} cases (6 shapes x 2 dtypes x 4-8 lengths x n_split "
         f"{DA_SPLITS}) passed, max_abs_err (out/l) {worst}")
 
     # the served shape at the length serving ends at, bf16 (the cache's)
@@ -2429,29 +2462,27 @@ def lm_logits(torch, np, params, cfg, cache, tokens) -> list:
     return out
 
 
-def profile_decode(torch, params, cfg, cache, steps) -> dict:
-    """``steps`` decode steps under ``torch.profiler``: device time summed
+def profiled(torch, fn, steps) -> dict:
+    """``fn()`` ``steps`` times under ``torch.profiler``: device time summed
     over the CUDA kernels, the wall of the window (synchronized), the
     host's top-level operator calls and the kernels that took the most
     device time.  The profiler slows the host, so the idle share read
     here is an upper bound."""
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.serve.decode import decode_step
 
-    tokens = torch.ones((cache["k"].shape[1], 1), dtype=torch.int32, device=DEVICE)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            decode_step(params, cfg, tokens, cache)
+            fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     events = prof.events()
     kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     host_ops = sum(1 for e in events
                    if e.device_type == torch.autograd.DeviceType.CPU and e.cpu_parent is None)
-    by_name = {}
+    by_name = {}  # summed over the kernels whose names share their first 60 characters
     for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+        by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + e.time_range.elapsed_us()
     busy_us = sum(by_name.values())
     out = {"steps": steps, "wall_ms_per_step": wall_us / steps / 1e3,
            "host_ops_per_step": host_ops / steps,
@@ -2460,11 +2491,19 @@ def profile_decode(torch, params, cfg, cache, steps) -> dict:
         out.update(device_busy_ms_per_step=busy_us / steps / 1e3,
                    device_idle_share=1.0 - busy_us / wall_us,
                    top_kernels_ms_per_step={
-                       k[:60]: v / steps / 1e3
+                       k: v / steps / 1e3
                        for k, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]})
     else:
         out["device_busy_ms_per_step"] = "not measured (no CUDA events in the trace)"
     return out
+
+
+def profile_decode(torch, params, cfg, cache, steps) -> dict:
+    """``steps`` decode steps of every slot under ``torch.profiler``."""
+    from repro_torch.serve.decode import decode_step
+
+    tokens = torch.ones((cache["k"].shape[1], 1), dtype=torch.int32, device=DEVICE)
+    return profiled(torch, lambda: decode_step(params, cfg, tokens, cache), steps)
 
 
 def phase_lm(torch, np, timer) -> dict:
@@ -2565,6 +2604,324 @@ def phase_lm(torch, np, timer) -> dict:
     return stats
 
 
+@contextlib.contextmanager
+def deterministic(torch):
+    """``torch.use_deterministic_algorithms(True)`` for the block (it needs
+    ``CUBLAS_WORKSPACE_CONFIG``, set before the first cuBLAS call); every
+    output is written in full, so uninitialized memory is not filled."""
+    import torch.utils.deterministic as td
+
+    fill = td.fill_uninitialized_memory
+    torch.use_deterministic_algorithms(True)
+    td.fill_uninitialized_memory = False
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        td.fill_uninitialized_memory = fill
+
+
+def within(torch, got, want, atol, rtol) -> tuple[bool, float]:
+    """``|got - want| <= atol + rtol·|want|`` everywhere, and the largest
+    absolute error."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    return bool((err <= atol + rtol * want.abs()).all()), float(err.max())
+
+
+def lm_train_card_vs_cpu(torch) -> dict:
+    """The smoke config in f32: the same ``init_lm`` parameters (drawn on
+    the CPU) and ``TokenBatcher`` batches, ``LM_TRAIN_CPU_STEPS`` AdamW
+    steps through ``launch.train.train`` on the card and on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenBatcher
+    from repro_torch.launch import train as lt
+    from repro_torch.models.layers import tree_map
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.train.loop import init_train_state
+    from repro_torch.train.optimizer import AdamW, make_schedule
+    from repro_torch.train.tree import flatten_with_names
+
+    cfg = get_config(LM_ARCH, smoke=True)
+    params = init_lm(torch.Generator().manual_seed(0), cfg)
+    finals, losses = {}, {}
+    for device in (DEVICE, "cpu"):
+        opt = AdamW(schedule=make_schedule("cosine", 3e-3, 10))
+        state = init_train_state(tree_map(lambda t: t.to(device), params), opt)
+        state, rep = lt.train(cfg, opt, TokenBatcher(cfg.vocab_size, 8, 64, seed=0),
+                              LM_TRAIN_CPU_STEPS, device=device, state=state,
+                              log=lambda *_: None)
+        finals[device] = dict(flatten_with_names(state.params))
+        losses[device] = [r["loss"] for r in rep["steps"]]
+    worst, ok = 0.0, True
+    for name, t in finals[DEVICE].items():
+        good, err = within(torch, t.cpu(), finals["cpu"][name], **STEP_TOL)
+        ok, worst = ok and good, max(worst, err)
+    out = {"steps": LM_TRAIN_CPU_STEPS, "max_abs_err": worst, "tol": STEP_TOL,
+           "loss_card": losses[DEVICE], "loss_cpu": losses["cpu"]}
+    if not ok:
+        raise AssertionError(f"lm-train: card and CPU disagree at the smoke config: {out}")
+    return out
+
+
+def phase_lm_train(torch, np) -> dict:
+    """chatglm3-6b at its published widths and ``LM_TRAIN_LAYERS`` layers,
+    trained on the card; see the module docstring, phase 10."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenBatcher
+    from repro_torch.kernels import decode_attention as kda
+    from repro_torch.kernels import ref
+    from repro_torch.launch import serve as ls
+    from repro_torch.launch import train as lt
+    from repro_torch.models import attention as attn
+    from repro_torch.models.layers import (apply_norm, cast_floats, count_params, tree_leaves,
+                                           tree_map)
+    from repro_torch.models.transformer import CHUNKED_ATTN_THRESHOLD, init_lm, lm_loss
+    from repro_torch.serve.kvcache import init_cache
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.fault_tolerance import run_with_restarts
+    from repro_torch.train.loop import init_train_state, make_train_step
+    from repro_torch.train.optimizer import AdamW, make_schedule
+    from repro_torch.train.tree import flatten_with_names
+
+    cpu_check = lm_train_card_vs_cpu(torch)
+    log("lm-train card-vs-cpu", json.dumps(cpu_check))
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), num_layers=LM_TRAIN_LAYERS)
+    t0 = time.perf_counter()
+    params0 = init_lm(torch.Generator(device=DEVICE).manual_seed(4), cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_copy = tree_map(torch.clone, params0)
+    n_params = count_params(params0)
+    embed_numel = params0["embed"].numel()
+    opt = AdamW(schedule=make_schedule("cosine", LM_TRAIN_LR, LM_TRAIN_STEPS))
+    data = TokenBatcher(cfg.vocab_size, *LM_TRAIN_BATCH, seed=0)
+
+    # bf16 against f32: the step-0 loss of the same parameters
+    tokens, labels = (torch.from_numpy(a).to(DEVICE) for a in data.batch(0))
+    with torch.no_grad():
+        loss_bf16 = float(lm_loss(params0, cfg, tokens, labels))
+        p32 = cast_floats(params0, torch.float32)
+        loss_f32 = float(lm_loss(p32, dataclasses.replace(cfg, dtype="float32"),
+                                 tokens, labels))
+    del p32
+    torch.cuda.empty_cache()
+    loss_check = {"loss_bf16": loss_bf16, "loss_f32": loss_f32,
+                  "rel": abs(loss_bf16 - loss_f32) / abs(loss_f32), "rtol": LM_TRAIN_LOSS_RTOL}
+    log("lm-train bf16-vs-f32", json.dumps(loss_check))
+    if not loss_check["rel"] <= LM_TRAIN_LOSS_RTOL:
+        raise AssertionError(f"lm-train: bf16 and f32 losses disagree: {loss_check}")
+
+    # chunked against full attention, one layer at full width, forward only
+    layer0 = {k: v[0] for k, v in params0["layers"]["attn"].items()}
+    x = torch.randn((1, CHUNKED_ATTN_THRESHOLD, cfg.d_model), device=DEVICE,
+                    generator=torch.Generator(device=DEVICE).manual_seed(5)).to(cfg.torch_dtype)
+    x = apply_norm({"scale": params0["layers"]["norm_attn"]["scale"][0]}, x, cfg.norm)
+    kw = dict(num_heads=cfg.num_heads, kv_heads=cfg.kv_heads, head_dim=cfg.resolved_head_dim,
+              rope_theta=cfg.rope_theta, rope_partial=cfg.rope_2d)
+    with torch.no_grad():
+        ok, err = within(torch, attn.chunked_self_attention(layer0, x, **kw),
+                         attn.self_attention(layer0, x, **kw), **BF16_TOL)
+    chunk_check = {"seq": CHUNKED_ATTN_THRESHOLD, "max_abs_err": err, "tol": BF16_TOL}
+    log("lm-train chunked-vs-full", json.dumps(chunk_check))
+    if not ok:
+        raise AssertionError(f"lm-train: chunked and full attention disagree: {chunk_check}")
+    del layer0, x
+    torch.cuda.empty_cache()
+
+    # training through the launcher as a user runs it (deterministic
+    # algorithms off): steps 0-3, then 4-7 over 2 microbatches
+    quiet = lambda *_: None
+    state, r1 = lt.train(cfg, opt, data, LM_TRAIN_MB_FROM, device=DEVICE,
+                         state=init_train_state(params0, opt), log=quiet)
+    state, r2 = lt.train(cfg, opt, data, LM_TRAIN_STEPS, device=DEVICE, state=state,
+                         start=LM_TRAIN_MB_FROM, microbatches=2, log=quiet)
+    del params0
+    state_bytes = sum(x.numel() * x.element_size() for x in tree_leaves(state))
+    # one step at 2 x 4,096 tokens: every block runs chunked_self_attention
+    chunked_calls = []
+    real_chunked = attn.chunked_self_attention
+
+    def counted_chunked(*a, **kw):
+        chunked_calls.append(1)
+        return real_chunked(*a, **kw)
+
+    long_data = TokenBatcher(cfg.vocab_size, *LM_TRAIN_LONG, seed=1)
+    with mock.patch.object(attn, "chunked_self_attention", counted_chunked):
+        state, r3 = lt.train(cfg, opt, long_data, LM_TRAIN_STEPS + 1, device=DEVICE,
+                             state=state, start=LM_TRAIN_STEPS, log=quiet)
+    peak = torch.cuda.max_memory_allocated()
+    # one more step of 8 x 512 tokens in one batch, traced
+    held = [state]
+    del state
+    tk, lb = (torch.from_numpy(a).to(DEVICE) for a in data.batch(LM_TRAIN_STEPS + 1))
+    traced_fn = make_train_step(cfg, opt)
+    profile = profiled(torch, lambda: held.__setitem__(
+        0, traced_fn(held[0], {"tokens": tk, "labels": lb})[0]), 1)
+    log("lm-train profile", json.dumps(profile))
+    steps = r1["steps"] + r2["steps"] + r3["steps"]
+    for r in steps:
+        log("lm-train step", json.dumps(r))
+    moved = any(not torch.equal(a, b) for (_, a), (_, b) in zip(
+        flatten_with_names(held[0].params), flatten_with_names(init_copy)))
+    finite = all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in steps)
+    del held, tk, lb
+    torch.cuda.empty_cache()
+    short_ms = np.asarray([r["ms"] for r in steps[:LM_TRAIN_STEPS]])
+    # the FLOPs of the step's products: 6 per matmul parameter and token
+    # (the embedding is a gather; an untied head is a product), and the
+    # attention's score and value products, 4 forward and 8 backward
+    # b·h·s²·hd a layer (the full s x s scores are computed, then masked)
+    b, s = LM_TRAIN_BATCH
+    matmul_params = n_params - (0 if cfg.tie_embeddings else embed_numel)
+    step_flop = (6 * matmul_params * b * s
+                 + 12 * cfg.num_layers * b * cfg.num_heads * s * s * cfg.resolved_head_dim)
+    train = {
+        "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+        "params": n_params, "init_s": init_s, "train_state_bytes": state_bytes,
+        "batch": LM_TRAIN_BATCH, "long_batch": LM_TRAIN_LONG,
+        "step_p50_ms": float(np.percentile(short_ms, 50)),
+        "step_p99_ms": float(np.percentile(short_ms, 99)),
+        "tokens_per_s": float(LM_TRAIN_BATCH[0] * LM_TRAIN_BATCH[1] * LM_TRAIN_STEPS
+                              / (short_ms.sum() / 1e3)),
+        "long_step_ms": steps[-1]["ms"],
+        "long_tokens_per_s": LM_TRAIN_LONG[0] * LM_TRAIN_LONG[1] / (steps[-1]["ms"] / 1e3),
+        "matmul_params": matmul_params, "tflop_per_step": step_flop / 1e12,
+        "chunked_calls": len(chunked_calls), "max_memory_allocated": peak,
+        "finite": finite, "moved": moved, "profile_step": LM_TRAIN_STEPS + 1,
+        "profile": profile,
+    }
+    train["share_of_bf16_peak_at_p50"] = (step_flop / (train["step_p50_ms"] / 1e3)
+                                          / PEAK_FLOPS["bfloat16"])
+    if not (finite and moved and len(chunked_calls) == cfg.num_layers):
+        raise AssertionError(f"lm-train: {train}")
+
+    # the same 8 steps again under deterministic algorithms: the bits the
+    # replay below is held to, and the mode's cost on the step
+    with deterministic(torch):
+        ref_state, d1 = lt.train(cfg, opt, data, LM_TRAIN_MB_FROM, device=DEVICE,
+                                 state=init_train_state(init_copy, opt), log=quiet)
+        ref_state, d2 = lt.train(cfg, opt, data, LM_TRAIN_STEPS, device=DEVICE,
+                                 state=ref_state, start=LM_TRAIN_MB_FROM, microbatches=2,
+                                 log=quiet)
+    clean = ref_state.params
+    del ref_state
+    torch.cuda.empty_cache()
+    det_ms = np.asarray([r["ms"] for r in d1["steps"] + d2["steps"]])
+    train["deterministic_step_p50_ms"] = float(np.percentile(det_ms, 50))
+    train["deterministic_step_p99_ms"] = float(np.percentile(det_ms, 99))
+    log("lm-train run", json.dumps(train))
+
+    # crash at step 6, restore step 4 from disk, replay: bit-equal to the
+    # uninterrupted run above
+    ckpt_dir = ROOT / "build" / "lm_train_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ckpt_dir.mkdir(parents=True)
+    free = shutil.disk_usage(ckpt_dir).free
+    if free < 2 * state_bytes:
+        raise AssertionError(f"lm-train: {free} B free under {ckpt_dir}, the checkpoints "
+                             f"need {2 * state_bytes} B")
+    step_fns = {1: make_train_step(cfg, opt), 2: make_train_step(cfg, opt, microbatches=2)}
+    crashed, saves, restores = [], [], []
+
+    def step_fn(step, st):
+        if step == LM_TRAIN_CRASH_AT and not crashed:
+            crashed.append(step)
+            raise RuntimeError("injected failure")
+        tk, lb = (torch.from_numpy(a).to(DEVICE) for a in data.batch(step))
+        return step_fns[2 if step >= LM_TRAIN_MB_FROM else 1](
+            st, {"tokens": tk, "labels": lb})[0]
+
+    def save_fn(step, st):
+        t0 = time.perf_counter()
+        handle = ckpt.save_async(str(ckpt_dir), step, st)
+        t1 = time.perf_counter()
+        handle.wait()
+        saves.append({"step": step, "snapshot_s": t1 - t0, "write_s": time.perf_counter() - t1})
+
+    like = None
+
+    def restore_fn():
+        latest = ckpt.latest_step(str(ckpt_dir))
+        t0 = time.perf_counter()
+        st = ckpt.restore(str(ckpt_dir), latest, like, device=DEVICE)
+        torch.cuda.synchronize()
+        restores.append({"step": latest, "restore_s": time.perf_counter() - t0})
+        return latest, st
+
+    start = init_train_state(init_copy, opt)
+    like = tree_map(lambda t: torch.empty_like(t, device="meta"), start)
+    with deterministic(torch):
+        final, rstats = run_with_restarts(step_fn, start, LM_TRAIN_STEPS, save_fn=save_fn,
+                                          restore_fn=restore_fn,
+                                          save_every=LM_TRAIN_SAVE_EVERY)
+    del start, init_copy
+    mismatched = [n for (n, a), (_, b) in zip(flatten_with_names(final.params),
+                                              flatten_with_names(clean)) if not torch.equal(a, b)]
+    replay = {"restarts": rstats["restarts"], "replayed_steps": rstats["replayed_steps"],
+              "saves": saves, "restores": restores, "checkpoint_bytes": sum(
+                  f.stat().st_size for f in (ckpt_dir / f"step_{LM_TRAIN_STEPS:09d}").iterdir()),
+              "train_state_bytes": state_bytes, "disk_free": free,
+              "mismatched_leaves": mismatched, "deterministic": True}
+    log("lm-train replay", json.dumps(replay))
+    if mismatched or rstats["restarts"] != 1 or [r["step"] for r in restores] != [4]:
+        raise AssertionError(f"lm-train: the replay differs from the uninterrupted run: {replay}")
+    in_memory = final.params
+    del final, clean
+    torch.cuda.empty_cache()
+
+    # the restored weights served through the flash-decode kernel
+    t0 = time.perf_counter()
+    restored = ckpt.restore(str(ckpt_dir), LM_TRAIN_STEPS, like, device=DEVICE).params
+    torch.cuda.synchronize()
+    restore_final_s = time.perf_counter() - t0
+    shutil.rmtree(ckpt_dir)
+    slots, max_seq, n_req, prompt, new = LM_TRAIN_SERVE
+    tokens = np.random.default_rng(6).integers(
+        1, cfg.vocab_size, size=(LM_PLAIN_STEPS, slots, 1)).astype(np.int32)
+
+    def plain(q, k_q, k_s, v_q, v_s, length, *, block_s=512):
+        return ref.fused_decode_attention_ref(q, k_q, k_s, v_q, v_s, length)
+
+    def steps_of(p):
+        return lm_logits(torch, np, p, cfg, init_cache(cfg, slots, max_seq, quant=True,
+                                                       device=DEVICE), tokens)
+
+    with torch.no_grad():
+        logits = [steps_of(p) for p in (restored, in_memory)]
+        with mock.patch.object(kda, "fused_decode_attention_cuda", plain):
+            plain_logits = steps_of(restored)
+    logits_equal = all(bool(torch.equal(a, b)) for a, b in zip(*logits))
+    kernel_vs_plain = max(float((a - b).abs().max().item())
+                          for a, b in zip(logits[0], plain_logits))
+    del in_memory, logits, plain_logits
+    requests = ls.make_requests(cfg, n_req, prompt, new)
+    cache = init_cache(cfg, slots, max_seq, quant=True, device=DEVICE)
+    kda.fused_decode_attention_cuda.launches = 0
+    with torch.no_grad():
+        report = ls.serve(restored, cfg, cache, requests)
+    launches = kda.fused_decode_attention_cuda.launches
+    report.pop("step_ms")
+    serve = {"restore_s": restore_final_s, "logit_steps": LM_PLAIN_STEPS,
+             "logits_bit_equal": logits_equal, "kernel_vs_plain_max_abs": kernel_vs_plain,
+             "kernel_vs_plain_tol": TOL["bfloat16"], "kernel_launches": launches,
+             "layers": cfg.num_layers, **report}
+    log("lm-train serve", json.dumps(serve))
+    if not (logits_equal and kernel_vs_plain <= TOL["bfloat16"]
+            and report["completed"] == n_req
+            and all(len(r.generated) == new for r in requests)
+            and launches == cfg.num_layers * report["steps"]):
+        raise AssertionError(f"lm-train serving of the restored weights: {serve}")
+    del restored, cache
+    torch.cuda.empty_cache()
+    stats = {"card_vs_cpu": cpu_check, "bf16_vs_f32": loss_check,
+             "chunked_vs_full": chunk_check, "train": train, "replay": replay,
+             "serve": serve, "kernel_launches": launches}
+    log("lm-train", json.dumps({k: v for k, v in stats.items() if k != "replay"}))
+    return stats
+
+
 def phase_quickstart(torch) -> dict:
     """``repro_torch.launch.quickstart.main`` on the card: the flat
     crossbar kernel over 32 queries, which ``main`` holds against the
@@ -2602,13 +2959,13 @@ def kernel_entry(name, source, replaces, launches, row) -> dict:
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         raise SystemExit("chip_smoke.py must run from a checkout of the repository")
+    # lm-train's deterministic runs need it before the first cuBLAS call
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA device; none is available")
     sys.path.insert(0, str(SRC))
-    import os
-
     import numpy as np
 
     # the timed phases run unvalidated; validated() turns the validators
@@ -2702,6 +3059,11 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     lm = phase_lm(torch, np, timer)
     mark("lm")
+    del timer
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    lm_train = phase_lm_train(torch, np)
+    mark("lm-train")
 
     crossbar_src = "src/repro_torch/kernels/csrc/crossbar_reduce.cu"
     kernels = [
@@ -2724,7 +3086,7 @@ def main() -> int:
         kernel_entry("fused_decode_attention",
                      "src/repro_torch/kernels/csrc/decode_attention.cu",
                      "src/repro/kernels/decode_attention.py:94",
-                     lm["kernel_launches"], da_row),
+                     lm["kernel_launches"] + lm_train["kernel_launches"], da_row),
     ]
     log("phases", json.dumps(phase_s))
     log(f"total: {time.perf_counter() - t_start:.1f} s")

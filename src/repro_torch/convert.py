@@ -13,6 +13,10 @@ from typing import Dict
 import numpy as np
 import torch
 
+from repro_torch.models.layers import tree_map
+from repro_torch.train.loop import TrainState
+from repro_torch.train.optimizer import AdafactorState, AdamWState
+
 
 def _tensor(a: np.ndarray, device) -> torch.Tensor:
     shape = np.shape(a)
@@ -76,3 +80,35 @@ def cache_from_numpy(cache, device="cuda"):
     bf16 ``k_scale``/``v_scale`` when quantized; the 0-d int32 ``len``)
     → the port's cache."""
     return _tree(cache, device)
+
+
+_OPT_STATES = {cls._fields: cls for cls in (AdamWState, AdafactorState)}
+
+
+def train_state_from_numpy(state, device="cuda") -> TrainState:
+    """A JAX ``TrainState`` of host arrays (``jax.tree.map(np.asarray,
+    state)``) → the port's :class:`~repro_torch.train.loop.TrainState`,
+    bit for bit.  Its ``opt_state`` becomes the port's ``AdamWState``
+    (fields ``step, mu, nu``) or ``AdafactorState`` (``step, vr, vc``),
+    told apart by its fields; the steps stay 0-d int32."""
+    opt = state.opt_state
+    cls = _OPT_STATES.get(tuple(opt._fields))
+    if cls is None:
+        raise TypeError(f"unknown optimizer state with fields {opt._fields}")
+    return TrainState(
+        params=_tree(state.params, device),
+        opt_state=cls(*(_tree(getattr(opt, f), device) for f in opt._fields)),
+        step=_tensor(np.asarray(state.step), device),
+    )
+
+
+def train_state_to_numpy(state: TrainState) -> TrainState:
+    """The port's ``TrainState`` → the same ``NamedTuple``s with NumPy
+    leaves on the host, to rebuild the JAX package's state from.  bfloat16
+    tensors come back widened to float32, which is exact:
+    ``jnp.asarray(a, jnp.bfloat16)`` narrows them back bit for bit."""
+    def host(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    return tree_map(host, state)

@@ -1,6 +1,7 @@
-"""GQA attention for one-token decode, over bf16 and int8 KV caches.
+"""GQA self-attention: full-sequence (train and prefill) and one-token
+decode over bf16 and int8 KV caches.
 
-The port of the decode half of ``repro.models.attention``.  Layouts are
+The port of ``repro.models.attention`` for the dense family.  Layouts are
 JAX's: activations ``(b, s, d_model)``, Q/K/V ``(b, s, heads, head_dim)``,
 a layer's cache ``(b, max_seq, kv_heads, head_dim)``; GQA groups query
 heads by einsum reshape, with no repeated K/V.  The cache length is a
@@ -11,8 +12,15 @@ the cache half of the attention with the CUDA flash-decode kernel
 (:func:`repro_torch.kernels.decode_attention.fused_decode_attention_cuda`,
 the plain version on CPU tensors) and merges the new token's own score
 into its ``(out, m, l)`` in plain torch.  The bf16 branch stays plain
-torch, as in JAX.  Still to port: ``self_attention``,
-``chunked_self_attention`` and the cross-attention functions.
+torch, as in JAX.
+
+``self_attention`` and ``chunked_self_attention`` compute the reference's
+plain-``jnp`` arithmetic in plain torch: float32 scores scaled by
+``1/sqrt(head_dim)``, the ``-1e30`` causal (and sliding-window) mask, the
+softmax in float32 cast to ``x.dtype`` before the value product; the
+chunked form runs the online softmax in float32 over ``(q_chunk,
+k_chunk)`` blocks and recomputes each block in backward.  Still to port:
+the cross-attention functions (the vlm family).
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ import math
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import decode_attention as kda
 from repro_torch.models.layers import Params, dense_init
@@ -72,6 +81,122 @@ def _gqa_out(attn, v):
     b, kvh, g, s, t = attn.shape
     out = torch.einsum("bkgst,btkd->bskgd", attn, v)
     return out.reshape(b, s, kvh * g * v.shape[-1])
+
+
+def _causal_mask(qpos, kpos, window: int):
+    """``kpos <= qpos`` (and ``kpos > qpos - window`` when ``window``)."""
+    mask = kpos <= qpos
+    if window:
+        mask &= kpos > qpos - window
+    return mask
+
+
+def self_attention(
+    p: Params,
+    x: torch.Tensor,                 # (b, s, d_model)
+    *,
+    num_heads: int,
+    kv_heads: int,
+    head_dim: int,
+    positions: Optional[torch.Tensor] = None,
+    rope_theta: float = 10_000.0,
+    rope_partial: bool = False,
+    causal: bool = True,
+    window: int = 0,                 # >0 → sliding-window attention
+) -> torch.Tensor:
+    """Full-sequence GQA attention; materializes the ``(s, s)`` scores."""
+    b, s, _ = x.shape
+    q, k, v = _project(p, x, num_heads, kv_heads, head_dim)
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None, :]
+    q = apply_rope(q, positions, theta=rope_theta, partial=rope_partial)
+    k = apply_rope(k, positions, theta=rope_theta, partial=rope_partial)
+
+    scores = _gqa_scores(q, k).float() / math.sqrt(head_dim)
+    if causal:
+        mask = _causal_mask(positions[:, None, None, :, None],
+                            positions[:, None, None, None, :], window)
+        scores = torch.where(mask, scores, -1e30)
+    attn = torch.softmax(scores, dim=-1).to(x.dtype)
+    return _gqa_out(attn, v) @ p["wo"]
+
+
+def _online_softmax_block(m, l, acc, q_blk, k_blk, v_blk, qp, kp, scale: float,
+                          window: int):
+    """One key block of the online softmax: ``(m, l, acc)`` updated with the
+    scores of ``q_blk (b, qc, kvh, g, d)`` against ``k_blk (b, kc, kvh, d)``."""
+    sc = torch.einsum("bqkgd,btkd->bqkgt", q_blk, k_blk) * scale
+    mask = _causal_mask(qp[:, :, None, None, None], kp[:, None, None, None, :], window)
+    sc = torch.where(mask, sc, -1e30)
+    m_new = torch.maximum(m, sc.amax(dim=-1))
+    correction = torch.exp(m - m_new)
+    w = torch.exp(sc - m_new[..., None])
+    l_new = l * correction + w.sum(dim=-1)
+    acc_new = acc * correction[..., None] + torch.einsum("bqkgt,btkd->bqkgd", w, v_blk)
+    return m_new, l_new, acc_new
+
+
+def chunked_self_attention(
+    p: Params,
+    x: torch.Tensor,                 # (b, s, d_model)
+    *,
+    num_heads: int,
+    kv_heads: int,
+    head_dim: int,
+    positions: Optional[torch.Tensor] = None,
+    rope_theta: float = 10_000.0,
+    rope_partial: bool = False,
+    q_chunk: int = 1024,
+    k_chunk: int = 1024,
+    window: int = 0,
+) -> torch.Tensor:
+    """Flash-style causal attention: online softmax over key chunks.
+
+    Never materializes the ``(s, s)`` scores: the largest intermediate is
+    one ``(q_chunk, k_chunk)`` block per head.  Every key block is visited
+    for every query block, in order, as the reference's scan does.  With
+    gradients on, each block runs under ``torch.utils.checkpoint``, so
+    backward recomputes its scores and the saved memory stays
+    O(q_chunk·k_chunk) (the reference's ``jax.checkpoint``).
+    """
+    b, s, _ = x.shape
+    if s % q_chunk or s % k_chunk:
+        raise ValueError(f"seq {s} is not a multiple of q_chunk {q_chunk} "
+                         f"and k_chunk {k_chunk}")
+    q, k, v = _project(p, x, num_heads, kv_heads, head_dim)
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None, :]
+    q = apply_rope(q, positions, theta=rope_theta, partial=rope_partial)
+    k = apply_rope(k, positions, theta=rope_theta, partial=rope_partial)
+    scale = 1.0 / math.sqrt(head_dim)
+    positions = positions.expand(b, s)
+
+    nq, nk = s // q_chunk, s // k_chunk
+    kvh, g = kv_heads, num_heads // kv_heads
+    qc = q.reshape(b, nq, q_chunk, kvh, g, head_dim).float()
+    kc = k.reshape(b, nk, k_chunk, kvh, head_dim).float()
+    vc = v.reshape(b, nk, k_chunk, kvh, head_dim).float()
+    qpos = positions.reshape(b, nq, q_chunk)
+    kpos = positions.reshape(b, nk, k_chunk)
+    remat = torch.is_grad_enabled()
+
+    outs = []
+    for qi in range(nq):
+        m = torch.full((b, q_chunk, kvh, g), -1e30, device=x.device)
+        l = torch.zeros((b, q_chunk, kvh, g), device=x.device)
+        acc = torch.zeros((b, q_chunk, kvh, g, head_dim), device=x.device)
+        for ki in range(nk):
+            args = (m, l, acc, qc[:, qi], kc[:, ki], vc[:, ki], qpos[:, qi], kpos[:, ki],
+                    scale, window)
+            if remat:
+                m, l, acc = checkpoint(_online_softmax_block, *args, use_reentrant=False)
+            else:
+                m, l, acc = _online_softmax_block(*args)
+        out = acc / torch.clamp_min(l, 1e-30)[..., None]
+        # accumulate f32, store in x.dtype, as the reference does
+        outs.append(out.to(x.dtype))                      # (b, q_chunk, kvh, g, d)
+    out = torch.stack(outs, dim=1).reshape(b, s, num_heads * head_dim)
+    return out @ p["wo"]
 
 
 def _new_qkv(p, x, cache_len, num_heads, kv_heads, head_dim, rope_theta, rope_partial):

@@ -97,11 +97,13 @@ def apply_mlp(p: Params, x: torch.Tensor, act: str = "swiglu") -> torch.Tensor:
 # ------------------------------------------------------------- pytrees --
 
 def tree_map(fn: Callable, tree, *rest):
-    """``fn`` over the leaves of nested dicts/lists (``jax.tree.map``)."""
+    """``fn`` over the leaves of nested dicts, lists, tuples and
+    ``NamedTuple``s (``jax.tree.map``)."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, *xs) for xs in zip(tree, *rest))
+        mapped = (tree_map(fn, *xs) for xs in zip(tree, *rest))
+        return type(tree)(*mapped) if hasattr(tree, "_fields") else type(tree)(mapped)
     return fn(tree, *rest)
 
 

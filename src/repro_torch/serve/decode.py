@@ -23,7 +23,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import apply_mlp, apply_norm, layer_slice
 
-_NOT_PORTED = "is not ported yet; it comes with the LM-stack slice of the PyTorch port"
+_NOT_PORTED = ("is not ported yet; it comes with the LM-families slices of the "
+               "PyTorch port (ROADMAP.md, Queue 1), which has the dense family")
 
 
 def _attn_kwargs(cfg: ModelConfig) -> dict:

@@ -48,7 +48,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, *, quant: bool = Fals
         return make_attn_cache(cfg, batch, max_seq, quant=quant, device=device)
     raise NotImplementedError(
         f"init_cache: family {cfg.family!r} is not ported yet; it comes with the "
-        "LM-stack slice of the PyTorch port"
+        "LM-families slices of the PyTorch port (ROADMAP.md, Queue 1)"
     )
 
 

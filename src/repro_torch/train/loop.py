@@ -1,0 +1,105 @@
+"""Train-step builders: autograd + optimizer + microbatching.
+
+The port of ``repro.train.loop``.  ``make_train_step`` returns a function
+of ``(state, batch)`` that computes the loss and its gradients with
+autograd and applies the optimizer's functional update.  With
+``microbatches > 1`` the batch is split along its leading dimension and
+``g / microbatches`` is accumulated in ``accum_dtype`` in order, one
+microbatch after another, as the reference's ``lax.scan`` does.  The
+reported ``grad_norm`` is the norm of the unclipped gradients; the clip
+happens inside ``optimizer.update``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, NamedTuple, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import tree_leaves, tree_map
+from repro_torch.models.transformer import lm_loss
+from repro_torch.train.tree import global_norm
+
+
+class TrainState(NamedTuple):
+    params: Any
+    opt_state: Any
+    step: torch.Tensor
+
+
+def init_train_state(params, optimizer) -> TrainState:
+    return TrainState(
+        params=params,
+        opt_state=optimizer.init(params),
+        step=torch.zeros((), dtype=torch.int32, device=tree_leaves(params)[0].device),
+    )
+
+
+def _value_and_grad(cfg: ModelConfig, params, tokens, labels, remat: bool):
+    """``(loss, grads)`` of ``lm_loss`` at ``params``; ``grads`` has the
+    structure and dtypes of ``params``."""
+    live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    with torch.enable_grad():
+        loss = lm_loss(live, cfg, tokens, labels, remat=remat)
+    grads = iter(torch.autograd.grad(loss, tree_leaves(live)))
+    return loss.detach(), tree_map(lambda _: next(grads), params)
+
+def make_train_step(
+    cfg: ModelConfig,
+    optimizer,
+    *,
+    remat: bool = False,
+    microbatches: int = 1,
+    has_enc: bool = False,
+    accum_dtype=torch.float32,
+) -> Callable:
+    """Builds ``train_step(state, batch) -> (state, metrics)``.
+
+    ``batch = {"tokens": ..., "labels": ...}``, int tensors on the
+    parameters' device; the leading batch dim must be divisible by
+    ``microbatches``.  ``metrics`` holds 0-d float32 device tensors
+    ``loss`` and ``grad_norm``.
+    """
+    if has_enc:
+        raise NotImplementedError(
+            "make_train_step: has_enc (the vlm family) is not ported yet; it comes "
+            "with the LM-families slices of the PyTorch port (ROADMAP.md, Queue 1)")
+
+    def train_step(state: TrainState, batch) -> Tuple[TrainState, dict]:
+        tokens, labels = batch["tokens"], batch["labels"]
+        if microbatches == 1:
+            loss, grads = _value_and_grad(cfg, state.params, tokens, labels, remat)
+        else:
+            if tokens.shape[0] % microbatches:
+                raise ValueError(f"batch {tokens.shape[0]} is not divisible by "
+                                 f"microbatches={microbatches}")
+            tk = tokens.reshape(microbatches, -1, *tokens.shape[1:])
+            lb = labels.reshape(microbatches, -1, *labels.shape[1:])
+            loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
+            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=accum_dtype, device=p.device),
+                             state.params)
+            for i in range(microbatches):
+                l, g = _value_and_grad(cfg, state.params, tk[i], lb[i], remat)
+                loss = loss + l / microbatches
+                grads = tree_map(lambda a, b: a + (b / microbatches).to(a.dtype), grads, g)
+                del g
+
+        new_params, new_opt = optimizer.update(grads, state.opt_state, state.params)
+        metrics = {"loss": loss.float(), "grad_norm": global_norm(grads)}
+        return TrainState(new_params, new_opt, state.step + 1), metrics
+
+    return train_step
+
+
+def make_eval_step(cfg: ModelConfig, *, has_enc: bool = False) -> Callable:
+    if has_enc:
+        raise NotImplementedError(
+            "make_eval_step: has_enc (the vlm family) is not ported yet; it comes "
+            "with the LM-families slices of the PyTorch port (ROADMAP.md, Queue 1)")
+
+    @torch.no_grad()
+    def eval_step(params, batch):
+        return lm_loss(params, cfg, batch["tokens"], batch["labels"])
+
+    return eval_step

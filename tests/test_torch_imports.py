@@ -51,7 +51,12 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
                 "repro_torch.serve.faults", "repro_torch.serve.drift",
                 "repro_torch.dist.replan", "repro_torch.serve.tiers",
                 "repro_torch.dist.mesh", "repro_torch.analysis",
-                "repro_torch.analysis.__main__", "repro_torch.launch.quickstart"):
+                "repro_torch.analysis.__main__", "repro_torch.launch.quickstart",
+                "repro_torch.data.pipeline", "repro_torch.train",
+                "repro_torch.train.optimizer", "repro_torch.train.loop",
+                "repro_torch.train.checkpoint", "repro_torch.train.compression",
+                "repro_torch.train.fault_tolerance", "repro_torch.train.tree",
+                "repro_torch.launch.train"):
         assert mod in res["modules"]
 
 

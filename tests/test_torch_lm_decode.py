@@ -230,7 +230,7 @@ def test_init_lm_bf16_converts_bit_for_bit_and_other_families_raise():
         np.testing.assert_array_equal(a.view(torch.int16).numpy(),
                                       np.asarray(j).view(np.int16), err_msg=path)
     moe = dataclasses.replace(get_config("chatglm3-6b", smoke=True), family="moe")
-    with pytest.raises(NotImplementedError, match="LM-stack slice"):
+    with pytest.raises(NotImplementedError, match="LM-families slices"):
         init_lm(torch.Generator().manual_seed(0), moe)
 
 
