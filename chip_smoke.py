@@ -7,8 +7,10 @@ Drives the port's main paths — the ReCross sharded embedding server, and
 DLRM forward and SGD training through the crossbar kernel with the
 embedding-bag kernel as the naive datapath, at the full sizes of the
 ``dlrm-recross`` model; then int8-KV LM decode serving of ``chatglm3-6b``
-FULL through the flash-decode attention kernel — and holds every CUDA
-kernel of those paths against its plain PyTorch version on the card.
+FULL through the flash-decode attention kernel, LM training, and the
+moe, vlm and audio families (``granite-moe-3b-a800m`` FULL served through
+the kernel) — and holds every CUDA kernel of those paths against its
+plain PyTorch version on the card.
 Phases, in order; any failure propagates and the process exits non-zero:
 
 1. device: the card's name and power limit (``nvidia-smi``); TF32 off;
@@ -105,10 +107,13 @@ Phases, in order; any failure propagates and the process exits non-zero:
    equal the dense path's, and loss and every gradient equal autograd
    through the plain versions; then 20 SGD steps through
    ``launch.train_dlrm.train`` with finite losses;
-8. flash-decode parity: the kernel against its plain version at six
+8. flash-decode parity: the kernel against its plain version at ten
    shapes, f32 and bf16, lengths 0, 1, S/3 + 7 and S (and 64, 65, 574 at
-   the served shape, 15, 16, 31, 32 at lm-train's b 4, S 4,096), each at
-   forced split counts 1, 2, 7 and the host
+   the served shape, 15, 16, 31, 32 at lm-train's b 4, S 4,096; the
+   lm-families shapes: granite-moe served (b 4, S 4,096, kvh 8, g 3, hd
+   64, also 15, 16, 63, 64, 79, 80), musicgen (b 4, S 1,024, kvh 24, g 1,
+   hd 64, also 15, 16, 31), grok-1 (kvh 8, g 6, hd 128) and command-r (g
+   8) at b 2, S 1,024), each at forced split counts 1, 2, 7 and the host
    rule's; then timed (split kernel and merge together) at the served
    shape (b 8, S 4,096, length 574) and one ``decode_32k`` layer, beside
    its bound, one split, its plain version and SDPA;
@@ -128,7 +133,25 @@ Phases, in order; any failure propagates and the process exits non-zero:
    ``launch.train`` does), and the restored weights served with an int8
    cache through the flash-decode kernel, their logits over 4 steps
    bit-equal to the in-memory weights' and within bf16 tolerance of the
-   plain version's.
+   plain version's;
+11. LM families: the smoke configs of ``granite-moe-3b-a800m``,
+   ``grok-1-314b``, ``llama-3.2-vision-11b`` (cross-attention gates at
+   0.5, seeded image embeddings), ``musicgen-medium``, ``minicpm-2b`` and
+   ``command-r-35b`` in f32 on the card against the CPU within 1e-4
+   (forward and ``lm_loss``, 3 decode steps over an int8 cache, one AdamW
+   step; the moe layers' router top-k first, equal); ``granite-moe-3b-a800m``
+   FULL (32 layers, 40 experts top-8, bf16) served through
+   ``launch.serve.serve`` with an int8 cache of 4 slots x 4,096 (4
+   requests of 16 + 16; logits over 4 steps within bf16 tolerance of the
+   plain version's, 32 kernel launches a step, the kernel at the served
+   layer, one traced step); the same at 8 of 32 layers trained 4 AdamW
+   steps of 8 x 512 tokens (steps 2-3 over 2 microbatches; aux loss,
+   matmul FLOPs share, one traced step); ``llama-3.2-vision-11b`` at its
+   widths and 5 of 40 layers (one superblock): one train step of 2 x 512
+   and 8 decode steps with its bf16 cache; ``musicgen-medium`` FULL: 32
+   decode steps at b 4 with an int8 cache of 1,024 (logits of every
+   codebook within bf16 tolerance of the plain version's, 48 launches a
+   step) and 2 train steps of 4 x 4 x 512.
 
 The kernels are built in parallel (one ``nvcc`` per source).  It then
 prints the host seconds of each phase, one ``{"kernels": [...]}`` line,
@@ -234,6 +257,25 @@ LM_TRAIN_CPU_STEPS = 3                 # the smoke config on the card against th
 LM_TRAIN_LOSS_RTOL = 0.02              # bf16 against f32 step-0 loss
 LM_TRAIN_SERVE = (4, 4_096, 4, 16, 16)  # slots, max_seq, requests, prompt, new
 STEP_TOL = {"atol": 1e-4, "rtol": 1e-4}  # tests/test_torch_lm_decode.py
+# lm-families: the moe, vlm and audio families and the two remaining dense configs
+FAM_ARCHS = ("granite-moe-3b-a800m", "grok-1-314b", "llama-3.2-vision-11b",
+             "musicgen-medium", "minicpm-2b", "command-r-35b")
+FAM_GATE = 0.5                          # vlm cross-attention gates (zero at init)
+FAM_CPU_DECODE_STEPS = 3
+MOE_ARCH = "granite-moe-3b-a800m"       # FULL: 32 layers, d 1,536, 40 experts top-8
+MOE_SERVE = (4, 4_096, 4, 16, 16)       # slots, max_seq, requests, prompt, new
+MOE_TRAIN_LAYERS = 8                    # of 32
+MOE_TRAIN_BATCH = (8, 512)
+MOE_TRAIN_STEPS = 4
+MOE_TRAIN_MB_FROM = 2                   # steps 2-3 over 2 microbatches
+VLM_ARCH = "llama-3.2-vision-11b"       # d 4,096, 1,601 image tokens
+VLM_LAYERS = 5                          # of 40: one superblock of 4 self + 1 cross
+VLM_TRAIN_BATCH = (2, 512)
+VLM_DECODE = (2, 64, 8)                 # slots, max_seq, steps (bf16 cache)
+AUDIO_ARCH = "musicgen-medium"          # FULL: 48 layers, d 1,536, 4 codebooks
+AUDIO_DECODE = (4, 1_024, 32)           # slots, max_seq, steps (int8 cache)
+AUDIO_TRAIN_BATCH = (4, 512)            # x 4 codebooks
+AUDIO_TRAIN_STEPS = 2
 BF16_TOL = {"atol": 0.15, "rtol": 1e-2}  # tests/test_kernels.py:34
 
 
@@ -2417,14 +2459,21 @@ def phase_decode_kernel(torch, timer) -> dict:
     gen = torch.Generator(device=DEVICE).manual_seed(2)
     shapes = [(1, 256, 1, 1, 128), (2, 1024, 2, 4, 128), (2, 512, 4, 2, 64),
               (1, 512, 2, 8, 256), (LM_SLOTS, LM_MAX_SEQ, 2, 16, 128),
-              (*LM_TRAIN_SERVE[:2], 2, 16, 128)]
+              (*LM_TRAIN_SERVE[:2], 2, 16, 128),
+              # lm-families: granite-moe served, musicgen, grok-1, command-r
+              (*MOE_SERVE[:2], 8, 3, 64), (*AUDIO_DECODE[:2], 24, 1, 64),
+              (2, 1024, 8, 6, 128), (2, 1024, 8, 8, 128)]
     worst, cases = 0.0, 0
     for b, S, kvh, g, hd in shapes:
         lengths = [0, 1, S // 3 + 7, S]
         if (b, S) == (LM_SLOTS, LM_MAX_SEQ):   # the lengths LM serving reaches
             lengths += [64, 65, LM_SERVED_LEN]
-        if (b, S) == LM_TRAIN_SERVE[:2]:       # those lm-train's serving reaches
+        if (b, S, hd) == (*LM_TRAIN_SERVE[:2], 128):   # those lm-train's serving reaches
             lengths += [15, 16, 31, 32]
+        if (b, S, kvh) == (*MOE_SERVE[:2], 8):  # granite-moe's: prompts, then decode
+            lengths += [15, 16, 63, 64, 79, 80]
+        if (b, S, kvh) == (*AUDIO_DECODE[:2], 24):   # musicgen's 32 steps
+            lengths += [15, 16, 31]
         for dtype in (torch.float32, torch.bfloat16):
             inputs = da_case(torch, gen, b, S, kvh, g, hd, dtype)
             for length in lengths:
@@ -2433,8 +2482,8 @@ def phase_decode_kernel(torch, timer) -> dict:
                     worst = max(worst, row["max_abs_err"])
                     cases += 1
         log("da-parity", json.dumps(row))
-    log(f"da-parity: {cases} cases (6 shapes x 2 dtypes x 4-8 lengths x n_split "
-        f"{DA_SPLITS}) passed, max_abs_err (out/l) {worst}")
+    log(f"da-parity: {cases} cases ({len(shapes)} shapes x 2 dtypes x 4-10 lengths x "
+        f"n_split {DA_SPLITS}) passed, max_abs_err (out/l) {worst}")
 
     # the served shape at the length serving ends at, bf16 (the cache's)
     inputs = da_case(torch, gen, LM_SLOTS, LM_MAX_SEQ, 2, 16, 128, torch.bfloat16)
@@ -2449,6 +2498,15 @@ def phase_decode_kernel(torch, timer) -> dict:
     del inputs
     torch.cuda.empty_cache()
     return row
+
+
+def plain_decode_attention(q, k_q, k_s, v_q, v_s, length, *, block_s=512):
+    """The flash-decode wrapper's signature over its plain version: patched
+    in for ``fused_decode_attention_cuda`` to run a model without the
+    kernel."""
+    from repro_torch.kernels import ref
+
+    return ref.fused_decode_attention_ref(q, k_q, k_s, v_q, v_s, length)
 
 
 def lm_logits(torch, np, params, cfg, cache, tokens) -> list:
@@ -2510,7 +2568,6 @@ def phase_lm(torch, np, timer) -> dict:
     """chatglm3-6b FULL decode with an int8 cache through the kernel."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import decode_attention as kda
-    from repro_torch.kernels import ref
     from repro_torch.launch import serve as ls
     from repro_torch.models.layers import count_params, tree_leaves
     from repro_torch.serve.kvcache import cache_bytes, init_cache
@@ -2533,10 +2590,7 @@ def phase_lm(torch, np, timer) -> dict:
         kernel = lm_logits(torch, np, params, cfg, init_cache(
             cfg, LM_SLOTS, LM_MAX_SEQ, quant=True, device=DEVICE), tokens)
 
-        def plain(q, k_q, k_s, v_q, v_s, length, *, block_s=512):
-            return ref.fused_decode_attention_ref(q, k_q, k_s, v_q, v_s, length)
-
-        with mock.patch.object(kda, "fused_decode_attention_cuda", plain):
+        with mock.patch.object(kda, "fused_decode_attention_cuda", plain_decode_attention):
             plain_logits = lm_logits(torch, np, params, cfg, init_cache(
                 cfg, LM_SLOTS, LM_MAX_SEQ, quant=True, device=DEVICE),
                 tokens[:LM_PLAIN_STEPS])
@@ -2670,7 +2724,6 @@ def phase_lm_train(torch, np) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.data import TokenBatcher
     from repro_torch.kernels import decode_attention as kda
-    from repro_torch.kernels import ref
     from repro_torch.launch import serve as ls
     from repro_torch.launch import train as lt
     from repro_torch.models import attention as attn
@@ -2881,16 +2934,13 @@ def phase_lm_train(torch, np) -> dict:
     tokens = np.random.default_rng(6).integers(
         1, cfg.vocab_size, size=(LM_PLAIN_STEPS, slots, 1)).astype(np.int32)
 
-    def plain(q, k_q, k_s, v_q, v_s, length, *, block_s=512):
-        return ref.fused_decode_attention_ref(q, k_q, k_s, v_q, v_s, length)
-
     def steps_of(p):
         return lm_logits(torch, np, p, cfg, init_cache(cfg, slots, max_seq, quant=True,
                                                        device=DEVICE), tokens)
 
     with torch.no_grad():
         logits = [steps_of(p) for p in (restored, in_memory)]
-        with mock.patch.object(kda, "fused_decode_attention_cuda", plain):
+        with mock.patch.object(kda, "fused_decode_attention_cuda", plain_decode_attention):
             plain_logits = steps_of(restored)
     logits_equal = all(bool(torch.equal(a, b)) for a, b in zip(*logits))
     kernel_vs_plain = max(float((a - b).abs().max().item())
@@ -2919,6 +2969,406 @@ def phase_lm_train(torch, np) -> dict:
              "chunked_vs_full": chunk_check, "train": train, "replay": replay,
              "serve": serve, "kernel_launches": launches}
     log("lm-train", json.dumps({k: v for k, v in stats.items() if k != "replay"}))
+    return stats
+
+
+def fam_inputs(np, cfg, b, s, seed):
+    """Seeded tokens and labels ``(b, s)`` (audio ``(b, K, s)``) and, for a
+    vlm config, image embeddings N(0, 0.1²) ``(b, num_image_tokens,
+    d_model)`` in float32 (``tests/test_archs_smoke.py:29-32``)."""
+    rng = np.random.default_rng(seed)
+    lead = (b, cfg.num_codebooks) if cfg.family == "audio" else (b,)
+    toks = rng.integers(0, cfg.vocab_size, size=(*lead, s + 1)).astype(np.int32)
+    enc = None
+    if cfg.family == "vlm":
+        enc = (rng.normal(size=(b, cfg.num_image_tokens, cfg.d_model)) * 0.1).astype(np.float32)
+    return toks[..., :-1], toks[..., 1:], enc
+
+
+def open_gates(params, gate=FAM_GATE):
+    """Every vlm cross-attention gate (zero at init) set to ``gate``, in
+    place: a closed gate would hide the cross path from every check."""
+    if "cross" in params["layers"]:
+        params["layers"]["cross"]["xattn"]["gate"].fill_(gate)
+    return params
+
+
+def record_topk(torch):
+    """A stand-in for ``transformer.apply_moe`` that records each call's
+    router top-k expert ids (as the layer computes them) and then runs the
+    layer; returns it with the list it appends to."""
+    from repro_torch.models import moe
+
+    picked = []
+
+    def wrapped(p, x, cfg_moe, act="swiglu", **kw):
+        logits = x.reshape(-1, x.shape[-1]).float() @ p["router"]
+        picked.append(torch.topk(torch.softmax(logits, dim=-1), cfg_moe.top_k,
+                                 dim=-1).indices.cpu().numpy())
+        return moe.apply_moe(p, x, cfg_moe, act, **kw)
+
+    return wrapped, picked
+
+
+def fam_run(torch, np, arch, device) -> dict:
+    """The smoke config of ``arch`` in f32 on ``device``: forward (the moe
+    router's top-k recorded) and ``lm_loss``, ``FAM_CPU_DECODE_STEPS``
+    decode steps (int8 cache, the flash-decode kernel on the card; a vlm
+    cache is never int8) and one AdamW train step, from parameters drawn
+    on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import tree_map
+    from repro_torch.serve.decode import decode_step
+    from repro_torch.serve.kvcache import init_cache
+    from repro_torch.train.loop import init_train_state, make_train_step
+    from repro_torch.train.optimizer import AdamW, make_schedule
+    from repro_torch.train.tree import flatten_with_names
+
+    cfg = get_config(arch, smoke=True)
+    params = open_gates(tf.init_lm(torch.Generator().manual_seed(0), cfg))
+    params = tree_map(lambda t: t.to(device), params)
+    tokens, labels, enc = fam_inputs(np, cfg, 2, 16, seed=1)
+    tk, lb = torch.from_numpy(tokens).to(device), torch.from_numpy(labels).to(device)
+    ec = None if enc is None else torch.from_numpy(enc).to(device)
+    out = {}
+    wrapped, picked = record_topk(torch)
+    with torch.no_grad(), mock.patch.object(tf, "apply_moe", wrapped):
+        logits, aux = tf.forward(params, cfg, tk, enc=ec)
+        out["forward"] = logits.float().cpu()
+        out["aux"] = aux.float().cpu()
+        out["loss"] = tf.lm_loss(params, cfg, tk, lb, enc=ec).float().cpu()
+    out["topk"] = picked
+    steps = np.random.default_rng(2).integers(
+        0, cfg.vocab_size, size=(FAM_CPU_DECODE_STEPS, *tokens.shape[:-1], 1)).astype(np.int32)
+    cache = init_cache(cfg, 2, 16, quant=True, device=device)
+    with torch.no_grad():
+        out["decode"] = [decode_step(params, cfg, torch.from_numpy(t).to(device), cache,
+                                     enc=ec)[0].float().cpu() for t in steps]
+    opt = AdamW(schedule=make_schedule(cfg.schedule, 3e-3, 10))
+    batch = {"tokens": tk, "labels": lb}
+    if ec is not None:
+        batch["enc"] = ec
+    state, metrics = make_train_step(cfg, opt, has_enc=ec is not None)(
+        init_train_state(params, opt), batch)
+    out["train_loss"] = metrics["loss"].cpu()
+    out["params"] = {n: t.cpu() for n, t in flatten_with_names(state.params)}
+    return out
+
+
+def fam_card_vs_cpu(torch, np) -> dict:
+    """``fam_run`` of each new arch on the card and on the CPU, held within
+    ``STEP_TOL``; the moe layers must pick the same experts first."""
+    rows = {}
+    for arch in FAM_ARCHS:
+        card, cpu = fam_run(torch, np, arch, DEVICE), fam_run(torch, np, arch, "cpu")
+        same_topk = (len(card["topk"]) == len(cpu["topk"])
+                     and all(np.array_equal(a, b) for a, b in zip(card["topk"], cpu["topk"])))
+        worst, ok = 0.0, same_topk
+        pairs = [(card[k], cpu[k]) for k in ("forward", "aux", "loss", "train_loss")]
+        pairs += list(zip(card["decode"], cpu["decode"]))
+        pairs += [(card["params"][n], cpu["params"][n]) for n in cpu["params"]]
+        for got, want in pairs:
+            good, err = within(torch, got, want, **STEP_TOL)
+            ok, worst = ok and good, max(worst, err)
+        rows[arch] = {"moe_layers_checked": len(cpu["topk"]), "same_topk": same_topk,
+                      "max_abs_err": worst, "loss_card": float(card["loss"]),
+                      "loss_cpu": float(cpu["loss"]), "ok": ok}
+        if not ok:
+            raise AssertionError(f"lm-families: card and CPU disagree at {arch}'s smoke "
+                                 f"config: {rows[arch]}")
+    return {"archs": rows, "tol": STEP_TOL, "decode_steps": FAM_CPU_DECODE_STEPS}
+
+
+def kernel_vs_plain_logits(torch, params, cfg, slots, max_seq, tokens) -> float:
+    """Decode logits (every codebook's for audio) over ``tokens`` from fresh
+    int8 caches, through the kernel and through its plain version: the
+    largest difference."""
+    from repro_torch.kernels import decode_attention as kda
+    from repro_torch.serve.decode import decode_step
+    from repro_torch.serve.kvcache import init_cache
+
+    def run():
+        cache = init_cache(cfg, slots, max_seq, quant=True, device=DEVICE)
+        return [decode_step(params, cfg, torch.from_numpy(t).to(DEVICE), cache)[0]
+                [..., :cfg.vocab_size].float() for t in tokens]
+
+    with torch.no_grad():
+        kernel = run()
+        with mock.patch.object(kda, "fused_decode_attention_cuda", plain_decode_attention):
+            plain = run()
+    if not all(bool(torch.isfinite(x).all()) for x in kernel):
+        raise AssertionError(f"lm-families: non-finite {cfg.name} logits")
+    return max(float((a - b).abs().max().item()) for a, b in zip(kernel, plain))
+
+
+def train_flop(cfg, tokens: int, seq: int) -> int:
+    """The matmul FLOPs of one train step, counted as ``lm-train`` counts
+    them: 6 per active matmul parameter and token (attention projections,
+    the router, the top-k experts' products, an untied head; not the
+    embedding gather) plus the attention's score and value products, 12
+    ``b·h·s²·hd`` a layer."""
+    from repro_torch.models.moe import moe_flops_per_token
+
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    attn = d * hd * (2 * cfg.num_heads + 2 * cfg.kv_heads)
+    ffn = (cfg.moe.num_experts * d + moe_flops_per_token(d, cfg.d_ff, cfg.moe, cfg.act) // 2
+           if cfg.moe else 3 * d * cfg.d_ff)
+    head = 0 if cfg.tie_embeddings else d * cfg.padded_vocab
+    per_token = cfg.num_layers * (attn + ffn) + head
+    b = tokens // seq
+    return 6 * per_token * tokens + 12 * cfg.num_layers * b * cfg.num_heads * seq * seq * hd
+
+
+def fam_moe_serve(torch, np, timer) -> dict:
+    """granite-moe-3b-a800m FULL served through ``launch.serve.serve`` with
+    an int8 cache: logits against the plain version, launches, the kernel
+    at the served layer, one traced step."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as kda
+    from repro_torch.launch import serve as ls
+    from repro_torch.models.layers import count_params, tree_leaves
+
+    cfg = get_config(MOE_ARCH)
+    slots, max_seq, n_req, prompt, new = MOE_SERVE
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, cache = ls.build(cfg, slots, max_seq, kv_int8=True, device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tokens = np.random.default_rng(8).integers(
+        1, cfg.vocab_size, size=(LM_PLAIN_STEPS, slots, 1)).astype(np.int32)
+    kernel_vs_plain = kernel_vs_plain_logits(torch, params, cfg, slots, max_seq, tokens)
+    requests = ls.make_requests(cfg, n_req, prompt, new)
+    kda.fused_decode_attention_cuda.launches = 0
+    with torch.no_grad():
+        report = ls.serve(params, cfg, cache, requests)
+    launches = kda.fused_decode_attention_cuda.launches
+    report.pop("step_ms")
+    length = int(cache["len"].item())
+    layer = (cache["k"][0], cache["k_scale"][0], cache["v"][0], cache["v_scale"][0])
+    qg = torch.randn((slots, cfg.kv_heads, cfg.q_per_kv, cfg.resolved_head_dim),
+                     generator=torch.Generator(device=DEVICE).manual_seed(9),
+                     device=DEVICE).to(torch.bfloat16)
+    served = da_parity(torch, "moe-served-layer", (qg, *layer), length)
+    ln = torch.tensor(length, dtype=torch.int32, device=DEVICE)
+    served["ms"] = timer.ms(lambda: kda.fused_decode_attention_cuda(qg, *layer, ln))
+    served["bound_ms"], served["bound_by"] = bound(*da_work(qg, *layer, length), "bfloat16")
+    with torch.no_grad():
+        prof = profile_decode(torch, params, cfg, cache, 1)
+    prof["host_ops_per_layer"] = prof["host_ops_per_step"] / cfg.num_layers
+    out = {"arch": cfg.name, "layers": cfg.num_layers, "params": count_params(params),
+           "weight_bytes": sum(x.numel() * x.element_size() for x in tree_leaves(params)),
+           "init_s": init_s, "slots": slots, "max_seq": max_seq, "requests": n_req,
+           "prompt": prompt, "new": new, "kernel_vs_plain_max_abs": kernel_vs_plain,
+           "kernel_vs_plain_tol": TOL["bfloat16"], "kernel_launches": launches,
+           "launches_per_step": launches / report["steps"], "final_len": length,
+           "served_layer": served, "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "profile": prof, **report}
+    if not (kernel_vs_plain <= TOL["bfloat16"] and report["completed"] == n_req
+            and all(len(r.generated) == new for r in requests)
+            and launches == cfg.num_layers * report["steps"]):
+        raise AssertionError(f"lm-families: granite-moe serving: {out}")
+    del params, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def fam_moe_train(torch, np) -> dict:
+    """granite-moe-3b-a800m at its widths and ``MOE_TRAIN_LAYERS`` layers:
+    AdamW steps of ``MOE_TRAIN_BATCH`` ``TokenBatcher`` tokens through
+    ``launch.train.train``, the later ones over 2 microbatches; one traced
+    step."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenBatcher
+    from repro_torch.launch import train as lt
+    from repro_torch.models.layers import count_params, tree_leaves
+    from repro_torch.models.transformer import forward, init_lm
+    from repro_torch.train.loop import init_train_state, make_train_step
+    from repro_torch.train.optimizer import AdamW, make_schedule
+
+    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_TRAIN_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    params = init_lm(torch.Generator(device=DEVICE).manual_seed(10), cfg)
+    n_params = count_params(params)
+    opt = AdamW(schedule=make_schedule(cfg.schedule, LM_TRAIN_LR, MOE_TRAIN_STEPS))
+    b, s = MOE_TRAIN_BATCH
+    data = TokenBatcher(cfg.vocab_size, b, s, seed=0)
+    quiet = lambda *_: None
+    state, r1 = lt.train(cfg, opt, data, MOE_TRAIN_MB_FROM, device=DEVICE,
+                         state=init_train_state(params, opt), log=quiet)
+    state, r2 = lt.train(cfg, opt, data, MOE_TRAIN_STEPS, device=DEVICE, state=state,
+                         start=MOE_TRAIN_MB_FROM, microbatches=2, log=quiet)
+    del params
+    state_bytes = sum(x.numel() * x.element_size() for x in tree_leaves(state))
+    peak = torch.cuda.max_memory_allocated()
+    tk, lb = (torch.from_numpy(a).to(DEVICE) for a in data.batch(MOE_TRAIN_STEPS))
+    with torch.no_grad():
+        _, aux = forward(state.params, cfg, tk)
+    held = [state]
+    del state
+    step_fn = make_train_step(cfg, opt)
+    prof = profiled(torch, lambda: held.__setitem__(
+        0, step_fn(held[0], {"tokens": tk, "labels": lb})[0]), 1)
+    prof["host_ops_per_layer"] = prof["host_ops_per_step"] / cfg.num_layers
+    steps = r1["steps"] + r2["steps"]
+    ms = np.asarray([r["ms"] for r in steps])
+    flop = train_flop(cfg, b * s, s)
+    out = {"arch": cfg.name, "layers": cfg.num_layers, "params": n_params,
+           "train_state_bytes": state_bytes, "batch": MOE_TRAIN_BATCH,
+           "microbatches_from": MOE_TRAIN_MB_FROM,
+           "losses": [r["loss"] for r in steps], "aux_loss": float(aux),
+           "step_ms": ms.tolist(), "step_p50_ms": float(np.percentile(ms, 50)),
+           "step_p99_ms": float(np.percentile(ms, 99)),
+           "tokens_per_s": float(b * s * len(steps) / (ms.sum() / 1e3)),
+           "tflop_per_step": flop / 1e12, "max_memory_allocated": peak, "profile": prof}
+    out["share_of_bf16_peak_at_p50"] = flop / (out["step_p50_ms"] / 1e3) / PEAK_FLOPS["bfloat16"]
+    finite = all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in steps)
+    if not (finite and np.isfinite(out["aux_loss"]) and out["aux_loss"] > 0):
+        raise AssertionError(f"lm-families: granite-moe training: {out}")
+    del held, tk, lb
+    torch.cuda.empty_cache()
+    return out
+
+
+def fam_vlm(torch, np) -> dict:
+    """llama-3.2-vision-11b at its widths and ``VLM_LAYERS`` layers (one
+    superblock), gates at ``FAM_GATE``, a seeded ``enc``: one train step
+    and decode steps with its bf16 cache."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenBatcher
+    from repro_torch.models.layers import count_params
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.serve.decode import decode_step
+    from repro_torch.serve.kvcache import init_cache
+    from repro_torch.train.loop import init_train_state, make_train_step
+    from repro_torch.train.optimizer import AdamW, make_schedule
+
+    cfg = dataclasses.replace(get_config(VLM_ARCH), num_layers=VLM_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    params = open_gates(init_lm(torch.Generator(device=DEVICE).manual_seed(11), cfg))
+    n_params = count_params(params)
+    b, s = VLM_TRAIN_BATCH
+    gen = torch.Generator(device=DEVICE).manual_seed(12)
+    enc = (torch.randn((b, cfg.num_image_tokens, cfg.d_model), generator=gen, device=DEVICE)
+           * 0.1).to(cfg.torch_dtype)
+    tk, lb = (torch.from_numpy(a).to(DEVICE)
+              for a in TokenBatcher(cfg.vocab_size, b, s, seed=0).batch(0))
+    opt = AdamW(schedule=make_schedule(cfg.schedule, LM_TRAIN_LR, 1))
+    step_fn = make_train_step(cfg, opt, has_enc=True)
+    t0 = time.perf_counter()
+    state, metrics = step_fn(init_train_state(params, opt),
+                             {"tokens": tk, "labels": lb, "enc": enc})
+    loss = float(metrics["loss"])
+    train_ms = (time.perf_counter() - t0) * 1e3
+    train_peak = torch.cuda.max_memory_allocated()
+    params = state.params
+    del state
+    torch.cuda.empty_cache()
+    slots, max_seq, n_steps = VLM_DECODE
+    cache = init_cache(cfg, slots, max_seq, device=DEVICE)
+    toks = np.random.default_rng(13).integers(1, cfg.vocab_size, size=(n_steps, slots, 1))
+    step_ms, logits = [], None
+    with torch.no_grad():
+        for t in toks.astype(np.int32):
+            t0 = time.perf_counter()
+            logits, _ = decode_step(params, cfg, torch.from_numpy(t).to(DEVICE), cache,
+                                    enc=enc[:slots])
+            logits = logits.float()
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    out = {"arch": cfg.name, "layers": cfg.num_layers, "params": n_params,
+           "image_tokens": cfg.num_image_tokens, "train_batch": VLM_TRAIN_BATCH,
+           "train_step_ms": train_ms, "train_loss": loss, "train_max_memory": train_peak,
+           "decode": {"slots": slots, "max_seq": max_seq, "steps": n_steps,
+                      "step_p50_ms": float(np.percentile(step_ms, 50)), "step_ms": step_ms},
+           "final_len": int(cache["len"].item()),
+           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    if not (np.isfinite(loss) and bool(torch.isfinite(logits).all())
+            and out["final_len"] == n_steps):
+        raise AssertionError(f"lm-families: llama-vision: {out}")
+    del params, cache, enc
+    torch.cuda.empty_cache()
+    return out
+
+
+def fam_audio(torch, np) -> dict:
+    """musicgen-medium FULL: decode steps at ``AUDIO_DECODE`` with an int8
+    cache through the kernel (held against the plain version), then train
+    steps of ``AUDIO_TRAIN_BATCH`` tokens over every codebook through
+    ``launch.train.train``."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenBatcher
+    from repro_torch.kernels import decode_attention as kda
+    from repro_torch.launch import train as lt
+    from repro_torch.models.layers import count_params
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.serve.decode import decode_step
+    from repro_torch.serve.kvcache import init_cache
+    from repro_torch.train.loop import init_train_state
+    from repro_torch.train.optimizer import AdamW, make_schedule
+
+    cfg = get_config(AUDIO_ARCH)
+    torch.cuda.reset_peak_memory_stats()
+    params = init_lm(torch.Generator(device=DEVICE).manual_seed(14), cfg)
+    n_params = count_params(params)
+    slots, max_seq, n_steps = AUDIO_DECODE
+    toks = np.random.default_rng(15).integers(
+        0, cfg.vocab_size, size=(n_steps, slots, cfg.num_codebooks, 1)).astype(np.int32)
+    kernel_vs_plain = kernel_vs_plain_logits(torch, params, cfg, slots, max_seq, toks)
+    cache = init_cache(cfg, slots, max_seq, quant=True, device=DEVICE)
+    step_ms = []
+    kda.fused_decode_attention_cuda.launches = 0
+    with torch.no_grad():
+        for t in toks:
+            t0 = time.perf_counter()
+            logits, _ = decode_step(params, cfg, torch.from_numpy(t).to(DEVICE), cache)
+            nxt = logits[:, :, -1, :cfg.vocab_size].argmax(dim=-1).cpu()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = kda.fused_decode_attention_cuda.launches
+    b, s = AUDIO_TRAIN_BATCH
+    opt = AdamW(schedule=make_schedule(cfg.schedule, LM_TRAIN_LR, AUDIO_TRAIN_STEPS))
+    state, rep = lt.train(cfg, opt, TokenBatcher(cfg.vocab_size, b, s, seed=0),
+                          AUDIO_TRAIN_STEPS, device=DEVICE,
+                          state=init_train_state(params, opt), log=lambda *_: None)
+    del params, state
+    out = {"arch": cfg.name, "layers": cfg.num_layers, "params": n_params,
+           "codebooks": cfg.num_codebooks,
+           "decode": {"slots": slots, "max_seq": max_seq, "steps": n_steps,
+                      "step_p50_ms": float(np.percentile(step_ms, 50)),
+                      "step_p99_ms": float(np.percentile(step_ms, 99)),
+                      "next_shape": list(nxt.shape)},
+           "kernel_vs_plain_max_abs": kernel_vs_plain, "kernel_vs_plain_tol": TOL["bfloat16"],
+           "kernel_launches": launches,
+           "train": {"batch": AUDIO_TRAIN_BATCH, "steps": [r["ms"] for r in rep["steps"]],
+                     "losses": [r["loss"] for r in rep["steps"]]},
+           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    if not (kernel_vs_plain <= TOL["bfloat16"] and launches == cfg.num_layers * n_steps
+            and all(np.isfinite(r["loss"]) for r in rep["steps"])):
+        raise AssertionError(f"lm-families: musicgen: {out}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_lm_families(torch, np, timer) -> dict:
+    """The moe, vlm and audio families and the two remaining dense
+    configs; see the module docstring, phase 11."""
+    t0 = time.perf_counter()
+    stats = {"card_vs_cpu": fam_card_vs_cpu(torch, np)}
+    log("lm-families card-vs-cpu", json.dumps(stats["card_vs_cpu"]))
+    stats["moe_serve"] = fam_moe_serve(torch, np, timer)
+    log("lm-families moe-serve", json.dumps(stats["moe_serve"]))
+    stats["moe_train"] = fam_moe_train(torch, np)
+    log("lm-families moe-train", json.dumps(stats["moe_train"]))
+    stats["vlm"] = fam_vlm(torch, np)
+    log("lm-families vlm", json.dumps(stats["vlm"]))
+    stats["audio"] = fam_audio(torch, np)
+    log("lm-families audio", json.dumps(stats["audio"]))
+    stats["kernel_launches"] = (stats["moe_serve"]["kernel_launches"]
+                                + stats["audio"]["kernel_launches"])
+    stats["seconds"] = time.perf_counter() - t0
+    log("lm-families", json.dumps({"kernel_launches": stats["kernel_launches"],
+                                   "seconds": stats["seconds"]}))
     return stats
 
 
@@ -3064,6 +3514,11 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     lm_train = phase_lm_train(torch, np)
     mark("lm-train")
+    torch.cuda.empty_cache()
+    timer = Timer(torch)
+    lm_families = phase_lm_families(torch, np, timer)
+    del timer
+    mark("lm-families")
 
     crossbar_src = "src/repro_torch/kernels/csrc/crossbar_reduce.cu"
     kernels = [
@@ -3086,7 +3541,8 @@ def main() -> int:
         kernel_entry("fused_decode_attention",
                      "src/repro_torch/kernels/csrc/decode_attention.cu",
                      "src/repro/kernels/decode_attention.py:94",
-                     lm["kernel_launches"] + lm_train["kernel_launches"], da_row),
+                     lm["kernel_launches"] + lm_train["kernel_launches"]
+                     + lm_families["kernel_launches"], da_row),
     ]
     log("phases", json.dumps(phase_s))
     log(f"total: {time.perf_counter() - t_start:.1f} s")

@@ -1,5 +1,5 @@
-"""Model configurations of the port (``dlrm_recross``, ``chatglm3_6b``,
-``stablelm_3b``) and the ``--arch`` registry."""
+"""Model configurations of the port (``dlrm_recross`` and the LM configs
+of the dense, moe, vlm and audio families) and the ``--arch`` registry."""
 
 from repro_torch.configs.base import (
     ARCH_IDS,

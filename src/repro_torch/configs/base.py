@@ -166,8 +166,9 @@ def get_config(arch: str, *, smoke: bool = False):
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(_MODULE_OF)}")
     if not _ported(arch):
         raise NotImplementedError(
-            f"{arch}: config not ported yet; it comes with the LM-families slices "
-            f"of the PyTorch port (ROADMAP.md, Queue 1); ported: {list_configs()}"
+            f"{arch}: config not ported yet; the ssm and hybrid configs come with the "
+            f"next LM-families slice of the PyTorch port (ROADMAP.md, Queue 1); "
+            f"ported: {list_configs()}"
         )
     mod = importlib.import_module(f"repro_torch.configs.{_MODULE_OF[arch]}")
     return mod.smoke() if smoke else mod.FULL

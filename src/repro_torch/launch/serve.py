@@ -18,7 +18,10 @@ the JAX launcher does); ``--kv-int8`` keeps an int8 cache, whose
 attention runs the flash-decode CUDA kernel.  The device defaults to
 ``cuda``; there is no fallback to the CPU, which runs the kernels' plain
 versions only when asked for with ``--device cpu``.  A step that would
-write past ``--max-seq`` raises (JAX clamps the write silently).  The
+write past ``--max-seq`` raises (JAX clamps the write silently).  A vlm
+model (``--arch llama-3.2-vision-11b``) is served with zero image
+embeddings ``(slots, num_image_tokens, d_model)``; an audio model is
+refused with ``SystemExit``, as the reference's launcher refuses it.  The
 module is import-safe: arguments are parsed only in :func:`main`.
 """
 
@@ -27,7 +30,7 @@ from __future__ import annotations
 import argparse
 import json
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -78,10 +81,22 @@ def make_requests(cfg: ModelConfig, n: int, prompt_len: int, max_new: int,
             for uid in range(n)]
 
 
-def serve(params: Params, cfg: ModelConfig, cache: Dict, requests: List[Request]) -> Dict:
+def image_embeddings(cfg: ModelConfig, slots: int, device) -> Optional[torch.Tensor]:
+    """The reference launcher's stub image embeddings for a vlm model:
+    zeros ``(slots, num_image_tokens, d_model)`` in the model dtype; None
+    for the other families."""
+    if cfg.family != "vlm":
+        return None
+    return torch.zeros((slots, cfg.num_image_tokens, cfg.d_model), dtype=cfg.torch_dtype,
+                       device=device)
+
+
+def serve(params: Params, cfg: ModelConfig, cache: Dict, requests: List[Request], *,
+          enc: Optional[torch.Tensor] = None) -> Dict:
     """Serves ``requests`` to the end through one ``RequestBatcher`` over
-    the cache's slots.  Returns the batcher's metrics with the step count,
-    each step's wall time (decode step + greedy argmax on the host) and
+    the cache's slots (``enc``: a vlm model's image embeddings, one row a
+    slot).  Returns the batcher's metrics with the step count, each
+    step's wall time (decode step + greedy argmax on the host) and
     throughput."""
     slots, max_seq = cache["k"].shape[1], cache["k"].shape[2]
     device = cache["len"].device
@@ -93,7 +108,8 @@ def serve(params: Params, cfg: ModelConfig, cache: Dict, requests: List[Request]
             raise ValueError(f"decode step at length {start + len(step_s)} would write "
                              f"past max_seq={max_seq}")
         t0 = time.perf_counter()
-        logits, _ = decode_step(params, cfg, torch.from_numpy(tokens).to(device), cache)
+        logits, _ = decode_step(params, cfg, torch.from_numpy(tokens).to(device), cache,
+                                enc=enc)
         nxt = logits[:, -1, :cfg.vocab_size].argmax(dim=-1).cpu().numpy()
         step_s.append(time.perf_counter() - t0)
         return nxt
@@ -136,10 +152,13 @@ def serve(params: Params, cfg: ModelConfig, cache: Dict, requests: List[Request]
 def main(argv=None) -> Dict:
     args = parse_args(argv)
     cfg = get_config(args.arch, smoke=not args.full)
+    if cfg.family == "audio":
+        raise SystemExit("serve demo targets text LMs; musicgen uses examples/")
     params, cache = build(cfg, args.slots, args.max_seq, kv_int8=args.kv_int8,
                           device=args.device)
     requests = make_requests(cfg, args.requests, PROMPT_LEN, args.max_new)
-    report = serve(params, cfg, cache, requests)
+    report = serve(params, cfg, cache, requests,
+                   enc=image_embeddings(cfg, args.slots, args.device))
     del report["step_ms"]
     report.update(
         arch=cfg.name, device=args.device, kv_int8=args.kv_int8,

@@ -14,7 +14,11 @@ Usage::
 
 ``--arch`` defaults to ``stablelm-3b``, whose smoke config is the dense
 family; the reference's default, ``xlstm-125m``, is the ssm family, which
-the port does not have yet.  ``--full`` trains the published config
+the port does not have yet.  The batches follow the reference's launcher:
+a vlm model (``--arch llama-3.2-vision-11b``) gets zero image embeddings
+``(batch, num_image_tokens, d_model)`` in the model dtype, an audio model
+(``--arch musicgen-medium``) the batcher's tokens and labels repeated over
+its ``num_codebooks``.  ``--full`` trains the published config
 (default: its smoke config, as the JAX launcher does).  The device
 defaults to ``cuda``; there is no fallback to the CPU, which runs only
 when asked for with ``--device cpu``.  :func:`train` takes any config,
@@ -61,6 +65,23 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
+def make_batch(cfg: ModelConfig, tokens: np.ndarray, labels: np.ndarray,
+               device) -> Dict[str, torch.Tensor]:
+    """A ``TokenBatcher`` batch ``(batch, seq)`` as the family's train step
+    takes it, on ``device``: audio tokens and labels repeated over the
+    codebooks ``(batch, K, seq)``; for vlm, zero image embeddings (float32
+    zeros cast to the model dtype, as the reference builds them)."""
+    tk, lb = torch.from_numpy(tokens).to(device), torch.from_numpy(labels).to(device)
+    if cfg.family == "audio":
+        k = cfg.num_codebooks
+        tk, lb = torch.stack([tk] * k, dim=1), torch.stack([lb] * k, dim=1)
+    batch = {"tokens": tk, "labels": lb}
+    if cfg.family == "vlm":
+        batch["enc"] = torch.zeros((tokens.shape[0], cfg.num_image_tokens, cfg.d_model),
+                                   dtype=cfg.torch_dtype, device=device)
+    return batch
+
+
 def train(
     cfg: ModelConfig,
     optimizer,
@@ -86,9 +107,10 @@ def train(
     before it, and the last is joined before returning.  Returns the
     final state and a report: each step's loss, grad norm and wall ms
     (the step ends when its loss reaches the host), their p50/p99, and
-    tokens/s.
+    tokens/s (a step's tokens counted as the batcher's ``batch × seq``).
     """
-    step_fn = make_train_step(cfg, optimizer, microbatches=microbatches)
+    step_fn = make_train_step(cfg, optimizer, microbatches=microbatches,
+                              has_enc=cfg.family == "vlm")
     if state is None:
         state = init_train_state(init_lm(torch.Generator(device=device).manual_seed(0), cfg),
                                  optimizer)
@@ -106,9 +128,7 @@ def train(
     for step in range(start, steps):
         t0 = time.perf_counter()
         tokens, labels = data.batch(step)
-        batch = {"tokens": torch.from_numpy(tokens).to(device),
-                 "labels": torch.from_numpy(labels).to(device)}
-        state, metrics = step_fn(state, batch)
+        state, metrics = step_fn(state, make_batch(cfg, tokens, labels, device))
         loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
         dt = time.perf_counter() - t0
         hb.beat(0, step)

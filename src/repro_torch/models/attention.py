@@ -19,8 +19,11 @@ plain-``jnp`` arithmetic in plain torch: float32 scores scaled by
 ``1/sqrt(head_dim)``, the ``-1e30`` causal (and sliding-window) mask, the
 softmax in float32 cast to ``x.dtype`` before the value product; the
 chunked form runs the online softmax in float32 over ``(q_chunk,
-k_chunk)`` blocks and recomputes each block in backward.  Still to port:
-the cross-attention functions (the vlm family).
+k_chunk)`` blocks and recomputes each block in backward.
+``cross_attention`` (the vlm family) attends from the text to the
+encoder's (image) embeddings with the same float32 scores and softmax,
+in query chunks of 512 when the sequence is a longer multiple of 512,
+scaled by ``tanh(gate)`` (zero at init).
 """
 
 from __future__ import annotations
@@ -309,3 +312,55 @@ def decode_attention_readonly(
     o = (num / den[..., None]).to(x.dtype)                     # (b,kvh,g,hd)
     out = o.reshape(b, 1, num_heads * head_dim) @ p["wo"]
     return out, k, v
+
+
+def init_cross_attention(generator: torch.Generator, d_model, num_heads, kv_heads, head_dim,
+                         enc_dim, dtype) -> Params:
+    return {
+        "wq": dense_init(generator, d_model, num_heads * head_dim, dtype),
+        "wk": dense_init(generator, enc_dim, kv_heads * head_dim, dtype),
+        "wv": dense_init(generator, enc_dim, kv_heads * head_dim, dtype),
+        "wo": dense_init(generator, num_heads * head_dim, d_model, dtype, scale=0.5),
+        # zero-init tanh gate (Llama-vision style)
+        "gate": torch.zeros((1,), dtype=dtype, device=generator.device),
+    }
+
+
+def _cross_block(q_blk, k, v, head_dim: int, dtype):
+    """One query chunk ``(b, qc, H, hd)`` over all of ``k``/``v``:
+    ``(b, qc, H*hd)``."""
+    scores = _gqa_scores(q_blk, k).float() / math.sqrt(head_dim)
+    attn = torch.softmax(scores, dim=-1).to(dtype)
+    return _gqa_out(attn, v)
+
+
+def cross_attention(
+    p: Params,
+    x: torch.Tensor,                 # (b, s, d_model)
+    enc: torch.Tensor,               # (b, t, enc_dim): image/patch embeddings
+    *,
+    num_heads: int,
+    kv_heads: int,
+    head_dim: int,
+    q_chunk: int = 512,
+) -> torch.Tensor:
+    """Gated cross-attention.  When ``s > q_chunk`` and ``s`` is a multiple
+    of it, the queries go in chunks, so the score buffer never exceeds
+    ``(q_chunk, t)`` a head; with gradients on, each chunk runs under
+    ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint``)."""
+    b, s, _ = x.shape
+    t = enc.shape[1]
+    q = (x @ p["wq"]).reshape(b, s, num_heads, head_dim)
+    k = (enc @ p["wk"]).reshape(b, t, kv_heads, head_dim)
+    v = (enc @ p["wv"]).reshape(b, t, kv_heads, head_dim)
+    if s > q_chunk and s % q_chunk == 0:
+        remat = torch.is_grad_enabled()
+        outs = []
+        for i in range(s // q_chunk):
+            args = (q[:, i * q_chunk:(i + 1) * q_chunk], k, v, head_dim, x.dtype)
+            outs.append(checkpoint(_cross_block, *args, use_reentrant=False) if remat
+                        else _cross_block(*args))
+        out = torch.cat(outs, dim=1)
+    else:
+        out = _cross_block(q, k, v, head_dim, x.dtype)
+    return torch.tanh(p["gate"]) * (out @ p["wo"])

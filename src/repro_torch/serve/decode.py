@@ -1,6 +1,7 @@
-"""decode_step: one-token decode of a dense LM over a KV cache.
+"""decode_step: one-token decode of an LM over a KV cache.
 
-The port of ``repro.serve.decode`` for the dense family.  JAX's
+The port of ``repro.serve.decode`` for the attention families (dense,
+moe, vlm, audio).  JAX's
 ``lax.scan`` over stacked layers becomes a Python loop over layer views;
 the cache is updated IN PLACE (JAX returns a new cache): the read-only
 path writes every layer's new K/V with one ``index_copy_`` at the
@@ -11,20 +12,29 @@ An int8 cache (keys ``k_scale``/``v_scale`` present) takes the read-only
 path, whose attention runs the flash-decode kernel; new K/V are
 quantized as JAX quantizes them: ``s = max|x|/127 + 1e-8`` in float32,
 ``round(x/s)`` half to even, to int8, the scale stored as bf16.
+
+The moe block runs ``apply_moe`` without ``num_groups`` (the forward
+passes ``cfg.moe_groups``), as the reference's decode does.  Audio
+tokens are ``(b, K, 1)`` and the logits ``(b, K, 1, V)``.  The vlm family
+takes the writing path over its self-attention layers, viewed
+``(n_super, period, …)``, with a cross-attention block over ``enc``
+closing each superblock, whatever ``readonly_cache`` says (as in JAX).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import apply_mlp, apply_norm, layer_slice
+from repro_torch.models.moe import apply_moe
+from repro_torch.models.transformer import cross_block_fwd, vlm_superblocks
 
-_NOT_PORTED = ("is not ported yet; it comes with the LM-families slices of the "
-               "PyTorch port (ROADMAP.md, Queue 1), which has the dense family")
+_NOT_PORTED = ("is not ported yet; the ssm and hybrid families come with the next "
+               "LM-families slice of the PyTorch port (ROADMAP.md, Queue 1)")
 
 
 def _attn_kwargs(cfg: ModelConfig) -> dict:
@@ -45,8 +55,9 @@ def _attn_block_decode(p, x, kc, vc, length, cfg: ModelConfig):
 
 def _block_ffn(p, x, cfg: ModelConfig):
     if cfg.moe:
-        raise NotImplementedError(f"the MoE block {_NOT_PORTED}")
-    if cfg.d_ff:
+        y, _ = apply_moe(p["moe"], apply_norm(p["norm_mlp"], x, cfg.norm), cfg.moe, cfg.act)
+        x = x + y
+    elif cfg.d_ff:
         x = x + apply_mlp(p["mlp"], apply_norm(p["norm_mlp"], x, cfg.norm), cfg.act)
     return x
 
@@ -66,29 +77,37 @@ def _attn_block_decode_readonly(p, x, kc, vc, length, cfg: ModelConfig, kv_scale
 def decode_step(
     params: Dict[str, Any],
     cfg: ModelConfig,
-    tokens: torch.Tensor,               # (b, 1) int
+    tokens: torch.Tensor,               # (b, 1) int, or (b, K, 1) for audio
     cache: Dict[str, Any],
     *,
+    enc: Optional[torch.Tensor] = None,  # (b, t_img, d): vlm image embeddings
     readonly_cache: bool = True,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """One decode step of a dense LM.
+    """One decode step, dispatched by model family.
 
-    Returns ``(logits (b, 1, padded_vocab), cache)``; ``cache`` is the
-    argument, updated in place (its K/V at position ``len``, then
-    ``len + 1``).
+    Returns ``(logits (b, 1, padded_vocab), cache)`` (audio: ``(b, K, 1,
+    padded_vocab)``); ``cache`` is the argument, updated in place (its K/V
+    at position ``len``, then ``len + 1``).
     """
-    if cfg.family != "dense":
-        raise NotImplementedError(f"decode_step: family {cfg.family!r} {_NOT_PORTED}")
-    if readonly_cache:
-        return _decode_attn_family_readonly(params, cfg, tokens, cache)
-    return _decode_attn_family(params, cfg, tokens, cache)
+    if cfg.family in ("dense", "moe", "audio"):
+        if readonly_cache:
+            return _decode_attn_family_readonly(params, cfg, tokens, cache)
+        return _decode_attn_family(params, cfg, tokens, cache)
+    if cfg.family == "vlm":
+        return _decode_vlm(params, cfg, tokens, cache, enc)
+    raise NotImplementedError(f"decode_step: family {cfg.family!r} {_NOT_PORTED}")
 
 
 def _embed_tokens(params, cfg: ModelConfig, tokens):
+    if cfg.family == "audio":
+        return sum(params[f"embed_{c}"][tokens[:, c].long()]
+                   for c in range(cfg.num_codebooks))
     return params["embed"][tokens.long()]
 
 
 def _project_logits(params, cfg: ModelConfig, x):
+    if cfg.family == "audio":
+        return torch.stack([x @ params[f"head_{c}"] for c in range(cfg.num_codebooks)], dim=1)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return x @ head
 
@@ -143,6 +162,30 @@ def _decode_attn_family(params, cfg, tokens, cache):
     for i in range(cfg.num_layers):
         x, _, _ = _attn_block_decode(
             layer_slice(params["layers"], i), x, cache["k"][i], cache["v"][i], length, cfg)
+    length.add_(1)
+    x = apply_norm(params["final_norm"], x, cfg.norm)
+    return _project_logits(params, cfg, x), cache
+
+
+def _decode_vlm(params, cfg, tokens, cache, enc):
+    """The writing path over the self-attention layers, the cache viewed
+    ``(n_super, period, …)``; each superblock ends with its cross block."""
+    if enc is None:
+        raise ValueError("decode_step: the vlm family needs image embeddings (enc=)")
+    if "k_scale" in cache:
+        raise TypeError("a vlm cache is never int8 (init_cache ignores quant for vlm)")
+    n_super, period = vlm_superblocks(cfg)
+    k5 = cache["k"].view(n_super, period, *cache["k"].shape[1:])
+    v5 = cache["v"].view(n_super, period, *cache["v"].shape[1:])
+    x = _embed_tokens(params, cfg, tokens)          # (b, 1, d)
+    length = cache["len"]
+    layers = params["layers"]
+    for i in range(n_super):
+        self_p = layer_slice(layers["super"], i)
+        for j in range(period):
+            x, _, _ = _attn_block_decode(layer_slice(self_p, j), x, k5[i, j], v5[i, j],
+                                         length, cfg)
+        x = cross_block_fwd(layer_slice(layers["cross"], i), x, enc, cfg)
     length.add_(1)
     x = apply_norm(params["final_norm"], x, cfg.norm)
     return _project_logits(params, cfg, x), cache

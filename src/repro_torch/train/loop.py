@@ -7,7 +7,9 @@ autograd and applies the optimizer's functional update.  With
 ``g / microbatches`` is accumulated in ``accum_dtype`` in order, one
 microbatch after another, as the reference's ``lax.scan`` does.  The
 reported ``grad_norm`` is the norm of the unclipped gradients; the clip
-happens inside ``optimizer.update``.
+happens inside ``optimizer.update``.  With ``has_enc`` (the vlm family)
+the batch's ``enc`` image embeddings go to the loss, split along the
+batch with the tokens.
 """
 
 from __future__ import annotations
@@ -36,12 +38,12 @@ def init_train_state(params, optimizer) -> TrainState:
     )
 
 
-def _value_and_grad(cfg: ModelConfig, params, tokens, labels, remat: bool):
+def _value_and_grad(cfg: ModelConfig, params, tokens, labels, enc, remat: bool):
     """``(loss, grads)`` of ``lm_loss`` at ``params``; ``grads`` has the
     structure and dtypes of ``params``."""
     live = tree_map(lambda p: p.detach().requires_grad_(True), params)
     with torch.enable_grad():
-        loss = lm_loss(live, cfg, tokens, labels, remat=remat)
+        loss = lm_loss(live, cfg, tokens, labels, enc=enc, remat=remat)
     grads = iter(torch.autograd.grad(loss, tree_leaves(live)))
     return loss.detach(), tree_map(lambda _: next(grads), params)
 
@@ -56,31 +58,32 @@ def make_train_step(
 ) -> Callable:
     """Builds ``train_step(state, batch) -> (state, metrics)``.
 
-    ``batch = {"tokens": ..., "labels": ...}``, int tensors on the
-    parameters' device; the leading batch dim must be divisible by
-    ``microbatches``.  ``metrics`` holds 0-d float32 device tensors
-    ``loss`` and ``grad_norm``.
+    ``batch = {"tokens": ..., "labels": ...[, "enc": ...]}``, tensors on
+    the parameters' device (``enc`` is read only with ``has_enc``); the
+    leading batch dim must be divisible by ``microbatches``.  ``metrics``
+    holds 0-d float32 device tensors ``loss`` and ``grad_norm``.
     """
-    if has_enc:
-        raise NotImplementedError(
-            "make_train_step: has_enc (the vlm family) is not ported yet; it comes "
-            "with the LM-families slices of the PyTorch port (ROADMAP.md, Queue 1)")
 
     def train_step(state: TrainState, batch) -> Tuple[TrainState, dict]:
         tokens, labels = batch["tokens"], batch["labels"]
+        enc = batch.get("enc") if has_enc else None
         if microbatches == 1:
-            loss, grads = _value_and_grad(cfg, state.params, tokens, labels, remat)
+            loss, grads = _value_and_grad(cfg, state.params, tokens, labels, enc, remat)
         else:
             if tokens.shape[0] % microbatches:
                 raise ValueError(f"batch {tokens.shape[0]} is not divisible by "
                                  f"microbatches={microbatches}")
-            tk = tokens.reshape(microbatches, -1, *tokens.shape[1:])
-            lb = labels.reshape(microbatches, -1, *labels.shape[1:])
+
+            def split(x):
+                return x.reshape(microbatches, -1, *x.shape[1:])
+
+            tk, lb = split(tokens), split(labels)
+            ec = split(enc) if enc is not None else [None] * microbatches
             loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
             grads = tree_map(lambda p: torch.zeros(p.shape, dtype=accum_dtype, device=p.device),
                              state.params)
             for i in range(microbatches):
-                l, g = _value_and_grad(cfg, state.params, tk[i], lb[i], remat)
+                l, g = _value_and_grad(cfg, state.params, tk[i], lb[i], ec[i], remat)
                 loss = loss + l / microbatches
                 grads = tree_map(lambda a, b: a + (b / microbatches).to(a.dtype), grads, g)
                 del g
@@ -93,13 +96,9 @@ def make_train_step(
 
 
 def make_eval_step(cfg: ModelConfig, *, has_enc: bool = False) -> Callable:
-    if has_enc:
-        raise NotImplementedError(
-            "make_eval_step: has_enc (the vlm family) is not ported yet; it comes "
-            "with the LM-families slices of the PyTorch port (ROADMAP.md, Queue 1)")
-
     @torch.no_grad()
     def eval_step(params, batch):
-        return lm_loss(params, cfg, batch["tokens"], batch["labels"])
+        enc = batch.get("enc") if has_enc else None
+        return lm_loss(params, cfg, batch["tokens"], batch["labels"], enc=enc)
 
     return eval_step

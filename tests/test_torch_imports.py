@@ -56,7 +56,11 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
                 "repro_torch.train.optimizer", "repro_torch.train.loop",
                 "repro_torch.train.checkpoint", "repro_torch.train.compression",
                 "repro_torch.train.fault_tolerance", "repro_torch.train.tree",
-                "repro_torch.launch.train"):
+                "repro_torch.launch.train", "repro_torch.models.moe",
+                "repro_torch.configs.granite_moe_3b_a800m", "repro_torch.configs.grok_1_314b",
+                "repro_torch.configs.minicpm_2b", "repro_torch.configs.command_r_35b",
+                "repro_torch.configs.llama_3_2_vision_11b",
+                "repro_torch.configs.musicgen_medium"):
         assert mod in res["modules"]
 
 

@@ -81,8 +81,9 @@ def test_registry():
     assert get_config("dlrm-recross", smoke=True).name == "dlrm-recross"
     assert {k: dataclasses.asdict(v) for k, v in t_base.SHAPES.items()} == {
         k: dataclasses.asdict(v) for k, v in j_base.SHAPES.items()}
-    with pytest.raises(NotImplementedError, match="not ported"):
-        get_config("zamba2-7b")
+    for arch in ("xlstm-125m", "zamba2-7b"):    # ssm and hybrid: the next slice
+        with pytest.raises(NotImplementedError, match="not ported"):
+            get_config(arch)
     with pytest.raises(KeyError):
         get_config("no-such-model")
 
@@ -229,9 +230,10 @@ def test_init_lm_bf16_converts_bit_for_bit_and_other_families_raise():
         assert a.dtype == torch.bfloat16, path
         np.testing.assert_array_equal(a.view(torch.int16).numpy(),
                                       np.asarray(j).view(np.int16), err_msg=path)
-    moe = dataclasses.replace(get_config("chatglm3-6b", smoke=True), family="moe")
-    with pytest.raises(NotImplementedError, match="LM-families slices"):
-        init_lm(torch.Generator().manual_seed(0), moe)
+    for family in ("ssm", "hybrid"):
+        other = dataclasses.replace(get_config("chatglm3-6b", smoke=True), family=family)
+        with pytest.raises(NotImplementedError, match="LM-families slice"):
+            init_lm(torch.Generator().manual_seed(0), other)
 
 
 def _decode_both(arch, quant, readonly, steps=8, b=2, max_seq=16):

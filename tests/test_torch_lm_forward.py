@@ -187,9 +187,11 @@ def test_forward_agrees_with_decode_step(arch):
 
 
 def test_other_families_raise():
-    cfg = dataclasses.replace(get_config("chatglm3-6b", smoke=True), family="moe")
+    """The recurrent families (ssm, hybrid) wait for the next slice."""
     toks = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="LM-families slices"):
-        ttf.forward({}, cfg, toks)
-    with pytest.raises(NotImplementedError, match="LM-families slices"):
-        ttf.lm_loss({}, cfg, toks, toks)
+    for family in ("ssm", "hybrid"):
+        cfg = dataclasses.replace(get_config("chatglm3-6b", smoke=True), family=family)
+        with pytest.raises(NotImplementedError, match="LM-families slice"):
+            ttf.forward({}, cfg, toks)
+        with pytest.raises(NotImplementedError, match="LM-families slice"):
+            ttf.lm_loss({}, cfg, toks, toks)

@@ -210,8 +210,24 @@ def test_microbatched_step_matches_single_batch_and_grad_norm_is_unclipped():
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-4, err_msg=n)
     with pytest.raises(ValueError, match="divisible"):
         tloop.make_train_step(cfg, opt, microbatches=3)(s1, batch)
-    with pytest.raises(NotImplementedError, match="vlm"):
-        tloop.make_train_step(cfg, opt, has_enc=True)
+    # has_enc: a vlm step over 2 microbatches, its enc split with the batch,
+    # equals JAX's
+    j_cfg, v_cfg = j_get_config("llama-3.2-vision-11b", smoke=True), get_config(
+        "llama-3.2-vision-11b", smoke=True)
+    jv = j_init_lm(jax.random.PRNGKey(2), j_cfg)
+    enc = np.random.default_rng(2).normal(size=(8, v_cfg.num_image_tokens, v_cfg.d_model))
+    enc = (enc * 0.1).astype(np.float32)
+    j_o = jopt.AdamW(schedule=lambda s: 1e-3)
+    j_state = jloop.init_train_state(jv, j_o)
+    j_new, jm = jax.jit(jloop.make_train_step(j_cfg, j_o, microbatches=2, has_enc=True))(
+        j_state, {"tokens": jnp.asarray(tokens), "labels": jnp.asarray(labels),
+                  "enc": jnp.asarray(enc)})
+    t_new, tm = tloop.make_train_step(v_cfg, topt.AdamW(schedule=lambda s: 1e-3),
+                                      microbatches=2, has_enc=True)(
+        train_state_from_numpy(jax.tree.map(np.asarray, j_state), "cpu"),
+        dict(batch, enc=torch.from_numpy(enc)))
+    np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]), **STEP_TOL)
+    assert_trees_close(t_new, j_new, **STEP_TOL)
 
 
 def test_eval_step_matches_jax():
