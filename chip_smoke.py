@@ -7,10 +7,12 @@ Drives the port's main paths — the ReCross sharded embedding server, and
 DLRM forward and SGD training through the crossbar kernel with the
 embedding-bag kernel as the naive datapath, at the full sizes of the
 ``dlrm-recross`` model; then int8-KV LM decode serving of ``chatglm3-6b``
-FULL through the flash-decode attention kernel, LM training, and the
+FULL through the flash-decode attention kernel, LM training, the
 moe, vlm and audio families (``granite-moe-3b-a800m`` FULL served through
-the kernel) — and holds every CUDA kernel of those paths against its
-plain PyTorch version on the card.
+the kernel), and the recurrent ssm and hybrid families (``xlstm-125m`` and
+``zamba2-7b`` FULL served, which launch none of the kernels) — and holds
+every CUDA kernel of those paths against its plain PyTorch version on the
+card.
 Phases, in order; any failure propagates and the process exits non-zero:
 
 1. device: the card's name and power limit (``nvidia-smi``); TF32 off;
@@ -151,7 +153,23 @@ Phases, in order; any failure propagates and the process exits non-zero:
    and 8 decode steps with its bf16 cache; ``musicgen-medium`` FULL: 32
    decode steps at b 4 with an int8 cache of 1,024 (logits of every
    codebook within bf16 tolerance of the plain version's, 48 launches a
-   step) and 2 train steps of 4 x 4 x 512.
+   step) and 2 train steps of 4 x 4 x 512;
+12. LM recurrent: the smoke configs of ``xlstm-125m`` (sLSTM + mLSTM) and
+   ``zamba2-7b`` (Mamba2 + the shared ring-window attention) in f32 on the
+   card against the CPU within 1e-4 (forward and ``lm_loss`` at s 16,
+   forward at the chunk thresholds: 256, the chunkwise mLSTM, and 4,096,
+   the chunked windowed shared attention, there within ``REC_LONG_TOL``;
+   3 decode steps; one AdamW step); decode against forward on the card at
+   s 8 within 5e-4 / 5e-3; the zamba ring of 8 slots decoding 2·8+3 steps
+   on the card and the CPU (finite, within 1e-4, its positions the last 8);
+   ``xlstm-125m`` and ``zamba2-7b`` FULL served through
+   ``launch.serve.serve`` (4 slots, ``max_seq`` 4,096 = zamba's ring, 4
+   requests of 16 + 16; step p50/p99, tokens/s, TTFT, cache bytes, one
+   traced step); ``xlstm-125m`` FULL and ``zamba2-7b`` at 7 of 81 layers
+   (one superblock and a 1-layer tail) trained 4 AdamW steps of 8 x 512
+   (steps 2-3 over 2 microbatches; matmul FLOPs share, peak memory, one
+   traced step; the sLSTM's share of the xlstm step).  The phase launches
+   none of the four kernels, and fails if it does.
 
 The kernels are built in parallel (one ``nvcc`` per source).  It then
 prints the host seconds of each phase, one ``{"kernels": [...]}`` line,
@@ -277,6 +295,23 @@ AUDIO_DECODE = (4, 1_024, 32)           # slots, max_seq, steps (int8 cache)
 AUDIO_TRAIN_BATCH = (4, 512)            # x 4 codebooks
 AUDIO_TRAIN_STEPS = 2
 BF16_TOL = {"atol": 0.15, "rtol": 1e-2}  # tests/test_kernels.py:34
+# lm-recurrent: the ssm (xlstm) and hybrid (zamba2) families
+REC_ARCHS = ("xlstm-125m", "zamba2-7b")
+REC_LONG = {"xlstm-125m": 256, "zamba2-7b": 4_096}  # the chunk thresholds: chunked mLSTM,
+                                                  # chunked windowed shared attention
+# zamba at 4,096 tokens: the SSD chunk form's float32 error against the
+# exact recurrence is ~1.7e-5 a Mamba2 layer on either side, and the
+# summation orders differ (tests/test_torch_lm_recurrent.py)
+REC_LONG_TOL = {"atol": 1e-3, "rtol": 1e-4}
+REC_CPU_DECODE_STEPS = 3
+REC_DECODE_TOL = {"atol": 5e-4, "rtol": 5e-3}   # tests/test_archs_smoke.py:113
+REC_DECODE_S = 8                        # decode against forward, on the card
+REC_RING_W = 8                          # tests/test_serve.py:31: 2·8+3 steps past the ring
+REC_SERVE = (4, 4_096, 4, 16, 16)       # slots, max_seq (the ring's W), requests, prompt, new
+REC_TRAIN_BATCH = (8, 512)
+REC_TRAIN_STEPS = 4
+REC_TRAIN_MB_FROM = 2                   # steps 2-3 over 2 microbatches
+ZAMBA_TRAIN_LAYERS = 7                  # of 81: one superblock of 6 and a 1-layer tail
 
 
 def log(*parts) -> None:
@@ -3103,21 +3138,54 @@ def kernel_vs_plain_logits(torch, params, cfg, slots, max_seq, tokens) -> float:
 
 
 def train_flop(cfg, tokens: int, seq: int) -> int:
-    """The matmul FLOPs of one train step, counted as ``lm-train`` counts
-    them: 6 per active matmul parameter and token (attention projections,
-    the router, the top-k experts' products, an untied head; not the
-    embedding gather) plus the attention's score and value products, 12
-    ``b·h·s²·hd`` a layer."""
-    from repro_torch.models.moe import moe_flops_per_token
+    """The matmul FLOPs of one train step: 6 per active non-embedding
+    matmul parameter and token (forward 2, backward 4), plus the
+    products whose size grows with the sequence, also forward + backward.
 
-    d, hd = cfg.d_model, cfg.resolved_head_dim
+    - attention families: the attention projections, the router, the
+      top-k experts' products, an untied head; the score and value
+      products, 12·b·h·s²·hd a layer;
+    - ssm (xlstm): per mLSTM layer its four d×d projections and the gates'
+      d×2H; per sLSTM layer ``w_in`` (4d²), ``wo`` (d²) and the recurrent
+      ``w_rec`` (4·d·hd, applied each step); an untied head; from
+      ``MLSTM_CHUNK_THRESHOLD`` tokens on the chunkwise mLSTM's products,
+      6·(2·c·d + 2·d·hd) a token and mLSTM layer (c = 256: q·kᵀ and the
+      scores' value product over the whole chunk, q·C and the k·vᵀ state
+      update);
+    - hybrid (zamba2): per Mamba2 layer ``w_in`` (d·(2·di + 2·N + H)) and
+      ``w_out`` (di·d), and the SSD chunk's products, 6·(c·N + c·di +
+      2·di·N) a token and layer (c = 128: C·Bᵀ, the scores' product with
+      x over the whole chunk, the carried state's read and its update);
+      the shared attention's projections and its score and value products
+      at each of its n_super applications; an untied head.
+    """
+    from repro_torch.models.moe import moe_flops_per_token
+    from repro_torch.models.transformer import MLSTM_CHUNK_THRESHOLD, num_slstm, zamba_layout
+
+    d, hd, L = cfg.d_model, cfg.resolved_head_dim, cfg.num_layers
+    b = tokens // seq
+    head = 0 if cfg.tie_embeddings else d * cfg.padded_vocab
     attn = d * hd * (2 * cfg.num_heads + 2 * cfg.kv_heads)
+    scores = 12 * b * cfg.num_heads * seq * seq * hd      # one attention layer
+    if cfg.family == "ssm":
+        n_s = num_slstm(cfg)
+        n_m, H = L - n_s, cfg.num_heads
+        params = n_m * (4 * d * d + 2 * H * d) + n_s * (5 * d * d + 4 * d * (d // H))
+        chunk = 256
+        intra = (6 * n_m * (2 * chunk * d + 2 * d * (d // H)) * tokens
+                 if seq >= MLSTM_CHUNK_THRESHOLD else 0)
+        return 6 * (params + head) * tokens + intra
+    if cfg.family == "hybrid":
+        n_super = zamba_layout(cfg)[0]
+        di, N, c = 2 * d, cfg.ssm_state, 128
+        H = di // 64
+        params = L * (d * (2 * di + 2 * N + H) + di * d) + n_super * attn
+        ssd = 6 * L * (c * N + c * di + 2 * di * N) * tokens
+        return 6 * (params + head) * tokens + ssd + n_super * scores
     ffn = (cfg.moe.num_experts * d + moe_flops_per_token(d, cfg.d_ff, cfg.moe, cfg.act) // 2
            if cfg.moe else 3 * d * cfg.d_ff)
-    head = 0 if cfg.tie_embeddings else d * cfg.padded_vocab
-    per_token = cfg.num_layers * (attn + ffn) + head
-    b = tokens // seq
-    return 6 * per_token * tokens + 12 * cfg.num_layers * b * cfg.num_heads * seq * seq * hd
+    per_token = L * (attn + ffn) + head
+    return 6 * per_token * tokens + L * scores
 
 
 def fam_moe_serve(torch, np, timer) -> dict:
@@ -3372,6 +3440,292 @@ def phase_lm_families(torch, np, timer) -> dict:
     return stats
 
 
+def rec_run(torch, np, arch, device) -> dict:
+    """The smoke config of ``arch`` in f32 on ``device``, from parameters
+    drawn on the CPU: ``forward`` and ``lm_loss`` at s 16, ``forward`` at
+    the chunk threshold ``REC_LONG``, ``REC_CPU_DECODE_STEPS`` decode
+    steps, one AdamW train step."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import tree_map
+    from repro_torch.serve.decode import decode_step
+    from repro_torch.serve.kvcache import init_cache
+    from repro_torch.train.loop import init_train_state, make_train_step
+    from repro_torch.train.optimizer import AdamW, make_schedule
+    from repro_torch.train.tree import flatten_with_names
+
+    cfg = get_config(arch, smoke=True)
+    params = tree_map(lambda t: t.to(device), tf.init_lm(torch.Generator().manual_seed(0), cfg))
+    tokens, labels, _ = fam_inputs(np, cfg, 2, 16, seed=1)
+    long_tokens, _, _ = fam_inputs(np, cfg, 1, REC_LONG[arch], seed=4)
+    tk, lb = torch.from_numpy(tokens).to(device), torch.from_numpy(labels).to(device)
+    out = {}
+    with torch.no_grad():
+        out["forward"] = tf.forward(params, cfg, tk)[0].float().cpu()
+        out["loss"] = tf.lm_loss(params, cfg, tk, lb).float().cpu()
+        out["long"] = tf.forward(params, cfg, torch.from_numpy(long_tokens).to(device))[0] \
+            .float().cpu()
+        steps = np.random.default_rng(2).integers(
+            0, cfg.vocab_size, size=(REC_CPU_DECODE_STEPS, 2, 1)).astype(np.int32)
+        cache = init_cache(cfg, 2, 16, device=device)
+        out["decode"] = [decode_step(params, cfg, torch.from_numpy(t).to(device), cache)[0]
+                         .float().cpu() for t in steps]
+    opt = AdamW(schedule=make_schedule(cfg.schedule, 3e-3, 10))
+    state, metrics = make_train_step(cfg, opt)(init_train_state(params, opt),
+                                               {"tokens": tk, "labels": lb})
+    out["train_loss"] = metrics["loss"].cpu()
+    out["params"] = {n: t.cpu() for n, t in flatten_with_names(state.params)}
+    return out
+
+
+def rec_card_vs_cpu(torch, np) -> dict:
+    """``rec_run`` of both smoke configs on the card and on the CPU, held
+    within ``STEP_TOL`` (zamba's 4,096-token forward within
+    ``REC_LONG_TOL``)."""
+    rows = {}
+    for arch in REC_ARCHS:
+        card, cpu = rec_run(torch, np, arch, DEVICE), rec_run(torch, np, arch, "cpu")
+        long_tol = REC_LONG_TOL if arch == "zamba2-7b" else STEP_TOL
+        pairs = [(card[k], cpu[k]) for k in ("forward", "loss", "train_loss")]
+        pairs += list(zip(card["decode"], cpu["decode"]))
+        pairs += [(card["params"][n], cpu["params"][n]) for n in cpu["params"]]
+        worst, ok = 0.0, True
+        for got, want in pairs:
+            good, err = within(torch, got, want, **STEP_TOL)
+            ok, worst = ok and good, max(worst, err)
+        long_ok, long_err = within(torch, card["long"], cpu["long"], **long_tol)
+        ok = ok and long_ok
+        rows[arch] = {"long_seq": REC_LONG[arch], "long_tol": long_tol,
+                      "long_max_abs_err": long_err,
+                      "max_abs_err": worst, "loss_card": float(card["loss"]),
+                      "loss_cpu": float(cpu["loss"]), "ok": ok}
+        if not ok:
+            raise AssertionError(f"lm-recurrent: card and CPU disagree at {arch}'s smoke "
+                                 f"config: {rows[arch]}")
+    return {"archs": rows, "tol": STEP_TOL, "decode_steps": REC_CPU_DECODE_STEPS}
+
+
+def rec_decode_vs_forward(torch, np) -> dict:
+    """On the card, both smoke configs: ``forward`` over ``REC_DECODE_S``
+    tokens against as many decode steps, within ``REC_DECODE_TOL``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve.decode import decode_step
+    from repro_torch.serve.kvcache import init_cache
+
+    rows = {}
+    for arch in REC_ARCHS:
+        cfg = get_config(arch, smoke=True)
+        params = tf.init_lm(torch.Generator(device=DEVICE).manual_seed(3), cfg)
+        tokens = torch.from_numpy(fam_inputs(np, cfg, 2, REC_DECODE_S, seed=3)[0]).to(DEVICE)
+        with torch.no_grad():
+            full = tf.forward(params, cfg, tokens)[0]
+            cache = init_cache(cfg, 2, 16, device=DEVICE)
+            dec = torch.cat([decode_step(params, cfg, tokens[:, t:t + 1], cache)[0]
+                             for t in range(REC_DECODE_S)], dim=1)
+        ok, err = within(torch, dec, full, **REC_DECODE_TOL)
+        rows[arch] = {"max_abs_err": err, "ok": ok}
+        if not ok:
+            raise AssertionError(f"lm-recurrent: {arch} decode against forward: {rows[arch]}")
+    return {"archs": rows, "tol": REC_DECODE_TOL, "s": REC_DECODE_S}
+
+
+def rec_ring(torch, np) -> dict:
+    """The zamba smoke config with a ring of ``REC_RING_W`` slots decodes
+    2·W+3 steps on the card and on the CPU: finite logits within
+    ``STEP_TOL`` of the CPU's, the ring's positions the last W."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.layers import tree_map
+    from repro_torch.serve.decode import decode_step
+    from repro_torch.serve.kvcache import init_cache
+
+    cfg = get_config("zamba2-7b", smoke=True)
+    params = tf.init_lm(torch.Generator().manual_seed(5), cfg)
+    n = 2 * REC_RING_W + 3
+    toks = np.random.default_rng(6).integers(0, cfg.vocab_size, size=(n, 1, 1)).astype(np.int32)
+    out = {}
+    for device in (DEVICE, "cpu"):
+        p = tree_map(lambda t: t.to(device), params)
+        cache = init_cache(cfg, 1, 1 << 12, window=REC_RING_W, device=device)
+        with torch.no_grad():
+            out[device] = [decode_step(p, cfg, torch.from_numpy(t).to(device), cache)[0]
+                           .float().cpu() for t in toks]
+        out[device + "_pos"] = sorted(cache["shared"]["pos"][0, 0].cpu().tolist())
+        out[device + "_len"] = (int(cache["len"]), int(cache["shared"]["len"]))
+    worst, ok = 0.0, True
+    for a, b in zip(out[DEVICE], out["cpu"]):
+        good, err = within(torch, a, b, **STEP_TOL)
+        ok, worst = ok and good and bool(torch.isfinite(a).all()), max(worst, err)
+    row = {"window": REC_RING_W, "steps": n, "max_abs_err": worst, "tol": STEP_TOL,
+           "len": out[DEVICE + "_len"], "positions": out[DEVICE + "_pos"]}
+    if not (ok and out[DEVICE + "_pos"] == list(range(n - REC_RING_W, n))
+            and out[DEVICE + "_len"] == (n, n)):
+        raise AssertionError(f"lm-recurrent: the ring past its window: {row}")
+    return row
+
+
+def rec_serve(torch, np, arch, smi) -> dict:
+    """``arch`` FULL served through ``launch.serve.serve`` at ``REC_SERVE``
+    (4 requests of 16 + 16), then one traced decode step of every slot."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as ls
+    from repro_torch.models.layers import count_params, tree_leaves
+    from repro_torch.serve.decode import decode_step
+    from repro_torch.serve.kvcache import cache_bytes
+
+    cfg = get_config(arch)
+    slots, max_seq, n_req, prompt, new = REC_SERVE
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, cache = ls.build(cfg, slots, max_seq, kv_int8=False, device=DEVICE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    requests = ls.make_requests(cfg, n_req, prompt, new)
+    with torch.no_grad():
+        report = ls.serve(params, cfg, cache, requests)
+    report.pop("step_ms")
+    tokens = torch.ones((slots, 1), dtype=torch.int32, device=DEVICE)
+    with torch.no_grad():
+        logits = decode_step(params, cfg, tokens, cache)[0]
+        prof = profiled(torch, lambda: decode_step(params, cfg, tokens, cache), 1)
+    prof["host_ops_per_layer"] = prof["host_ops_per_step"] / cfg.num_layers
+    out = {"card": smi, "arch": cfg.name, "layers": cfg.num_layers,
+           "params": count_params(params),
+           "weight_bytes": sum(x.numel() * x.element_size() for x in tree_leaves(params)),
+           "init_s": init_s, "slots": slots, "max_seq": max_seq, "requests": n_req,
+           "prompt": prompt, "new": new, "cache_bytes": cache_bytes(cache),
+           "final_len": int(cache["len"].item()),
+           "max_memory_allocated": torch.cuda.max_memory_allocated(), "profile": prof,
+           **report}
+    if cfg.family == "hybrid":
+        out["ring_bytes"] = cache_bytes(cache["shared"])
+        out["mamba_state_bytes"] = cache_bytes(cache["mamba"]) + cache_bytes(cache["tail"])
+    if not (report["completed"] == n_req and all(len(r.generated) == new for r in requests)
+            and bool(torch.isfinite(logits).all())):
+        raise AssertionError(f"lm-recurrent: {arch} serving: {out}")
+    del params, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def slstm_step_ms(torch, cfg, b, s) -> float:
+    """CUDA-event time of one sLSTM layer's forward and backward at the
+    training shape ``(b, s, d_model)`` (its ``s``-step sequential loop)."""
+    from repro_torch.models import xlstm
+
+    p = {k: v.requires_grad_(True) for k, v in xlstm.init_slstm(
+        torch.Generator(device=DEVICE).manual_seed(16), cfg.d_model, cfg.num_heads,
+        cfg.torch_dtype).items()}
+    x = torch.randn((b, s, cfg.d_model), generator=torch.Generator(device=DEVICE).manual_seed(17),
+                    device=DEVICE).to(cfg.torch_dtype).requires_grad_(True)
+
+    def run():
+        y, _ = xlstm.slstm_scan(p, x, cfg.num_heads)
+        y.float().sum().backward()
+
+    run()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    run()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def rec_train(torch, np, arch, layers, smi) -> dict:
+    """``arch`` at its widths and ``layers`` layers: ``REC_TRAIN_STEPS``
+    AdamW steps of ``REC_TRAIN_BATCH`` ``TokenBatcher`` tokens through
+    ``launch.train.train``, from ``REC_TRAIN_MB_FROM`` on over 2
+    microbatches; one traced step."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenBatcher
+    from repro_torch.launch import train as lt
+    from repro_torch.models.layers import count_params, tree_leaves
+    from repro_torch.models.transformer import init_lm, num_slstm
+    from repro_torch.train.loop import init_train_state, make_train_step
+    from repro_torch.train.optimizer import AdamW, make_schedule
+
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    torch.cuda.reset_peak_memory_stats()
+    params = init_lm(torch.Generator(device=DEVICE).manual_seed(18), cfg)
+    n_params = count_params(params)
+    opt = AdamW(schedule=make_schedule(cfg.schedule, LM_TRAIN_LR, REC_TRAIN_STEPS))
+    b, s = REC_TRAIN_BATCH
+    data = TokenBatcher(cfg.vocab_size, b, s, seed=0)
+    quiet = lambda *_: None
+    state, r1 = lt.train(cfg, opt, data, REC_TRAIN_MB_FROM, device=DEVICE,
+                         state=init_train_state(params, opt), log=quiet)
+    state, r2 = lt.train(cfg, opt, data, REC_TRAIN_STEPS, device=DEVICE, state=state,
+                         start=REC_TRAIN_MB_FROM, microbatches=2, log=quiet)
+    del params
+    state_bytes = sum(x.numel() * x.element_size() for x in tree_leaves(state))
+    peak = torch.cuda.max_memory_allocated()
+    tk, lb = (torch.from_numpy(a).to(DEVICE) for a in data.batch(REC_TRAIN_STEPS))
+    held = [state]
+    del state
+    step_fn = make_train_step(cfg, opt)
+    prof = profiled(torch, lambda: held.__setitem__(
+        0, step_fn(held[0], {"tokens": tk, "labels": lb})[0]), 1)
+    prof["host_ops_per_layer"] = prof["host_ops_per_step"] / cfg.num_layers
+    steps = r1["steps"] + r2["steps"]
+    ms = np.asarray([r["ms"] for r in steps])
+    flop = train_flop(cfg, b * s, s)
+    out = {"card": smi, "arch": cfg.name, "layers": cfg.num_layers, "params": n_params,
+           "train_state_bytes": state_bytes, "batch": REC_TRAIN_BATCH,
+           "microbatches_from": REC_TRAIN_MB_FROM,
+           "losses": [r["loss"] for r in steps], "step_ms": ms.tolist(),
+           "step_p50_ms": float(np.percentile(ms, 50)),
+           "step_p99_ms": float(np.percentile(ms, 99)),
+           "tokens_per_s": float(b * s * len(steps) / (ms.sum() / 1e3)),
+           "tflop_per_step": flop / 1e12, "max_memory_allocated": peak, "profile": prof}
+    out["share_of_bf16_peak_at_p50"] = flop / (out["step_p50_ms"] / 1e3) / PEAK_FLOPS["bfloat16"]
+    if cfg.family == "ssm":
+        out["slstm_layer_fwd_bwd_ms"] = slstm_step_ms(torch, cfg, b, s)
+        out["slstm_share_of_p50"] = (num_slstm(cfg) * out["slstm_layer_fwd_bwd_ms"]
+                                     / out["step_p50_ms"])
+    if not all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"]) for r in steps):
+        raise AssertionError(f"lm-recurrent: {arch} training: {out}")
+    del held, tk, lb
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_lm_recurrent(torch, np, smi) -> dict:
+    """The ssm (xlstm) and hybrid (zamba2) families; see the module
+    docstring, phase 12.  Launches none of the four kernels."""
+    from repro_torch.kernels.crossbar_reduce import crossbar_reduce_cuda
+    from repro_torch.kernels.decode_attention import fused_decode_attention_cuda
+    from repro_torch.kernels.embedding_bag import embedding_bag_cuda
+
+    wrappers = (crossbar_reduce_cuda, embedding_bag_cuda, fused_decode_attention_cuda)
+    before = [w.launches for w in wrappers]
+    t0 = time.perf_counter()
+    stats = {"card_vs_cpu": rec_card_vs_cpu(torch, np)}
+    log("lm-recurrent card-vs-cpu", json.dumps({"card": smi, **stats["card_vs_cpu"]}))
+    stats["decode_vs_forward"] = rec_decode_vs_forward(torch, np)
+    log("lm-recurrent decode-vs-forward", json.dumps({"card": smi,
+                                                      **stats["decode_vs_forward"]}))
+    stats["ring"] = rec_ring(torch, np)
+    log("lm-recurrent ring", json.dumps({"card": smi, **stats["ring"]}))
+    for arch in REC_ARCHS:
+        key = arch.split("-")[0]
+        stats[f"{key}_serve"] = rec_serve(torch, np, arch, smi)
+        log(f"lm-recurrent {key}-serve", json.dumps(stats[f"{key}_serve"]))
+    stats["xlstm_train"] = rec_train(torch, np, "xlstm-125m", 12, smi)
+    log("lm-recurrent xlstm-train", json.dumps(stats["xlstm_train"]))
+    stats["zamba2_train"] = rec_train(torch, np, "zamba2-7b", ZAMBA_TRAIN_LAYERS, smi)
+    log("lm-recurrent zamba2-train", json.dumps(stats["zamba2_train"]))
+    stats["kernel_launches"] = sum(w.launches - n for w, n in zip(wrappers, before))
+    stats["seconds"] = time.perf_counter() - t0
+    log("lm-recurrent", json.dumps({"card": smi, "kernel_launches": stats["kernel_launches"],
+                                    "seconds": stats["seconds"]}))
+    if stats["kernel_launches"]:
+        raise AssertionError("lm-recurrent: the recurrent path launched a kernel of the "
+                             "attention or embedding paths")
+    return stats
+
+
 def phase_quickstart(torch) -> dict:
     """``repro_torch.launch.quickstart.main`` on the card: the flat
     crossbar kernel over 32 queries, which ``main`` holds against the
@@ -3519,6 +3873,9 @@ def main() -> int:
     lm_families = phase_lm_families(torch, np, timer)
     del timer
     mark("lm-families")
+    torch.cuda.empty_cache()
+    phase_lm_recurrent(torch, np, smi)
+    mark("lm-recurrent")
 
     crossbar_src = "src/repro_torch/kernels/csrc/crossbar_reduce.cu"
     kernels = [

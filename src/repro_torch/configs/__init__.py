@@ -1,5 +1,6 @@
 """Model configurations of the port (``dlrm_recross`` and the LM configs
-of the dense, moe, vlm and audio families) and the ``--arch`` registry."""
+of every family: dense, moe, vlm, audio, ssm and hybrid) and the
+``--arch`` registry."""
 
 from repro_torch.configs.base import (
     ARCH_IDS,

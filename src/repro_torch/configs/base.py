@@ -7,15 +7,13 @@ by :attr:`ModelConfig.torch_dtype`.  Each ported
 configuration) and ``smoke()`` (a reduced config of the same family).
 
 The registry (:func:`get_config`, :func:`list_configs`) resolves
-``--arch`` ids to ``repro_torch.configs.<module>``; an id whose config
-module is not ported yet raises ``NotImplementedError``.
+``--arch`` ids to ``repro_torch.configs.<module>``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from pathlib import Path
 from typing import Optional
 
 import torch
@@ -153,30 +151,18 @@ ARCH_IDS = [
 
 _MODULE_OF = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
 _MODULE_OF["dlrm-recross"] = "dlrm_recross"
-_HERE = Path(__file__).resolve().parent
-
-
-def _ported(arch: str) -> bool:
-    return (_HERE / f"{_MODULE_OF[arch]}.py").exists()
 
 
 def get_config(arch: str, *, smoke: bool = False):
     """Resolves ``--arch`` ids to (ModelConfig | DLRMConfig)."""
     if arch not in _MODULE_OF:
         raise KeyError(f"unknown arch {arch!r}; known: {sorted(_MODULE_OF)}")
-    if not _ported(arch):
-        raise NotImplementedError(
-            f"{arch}: config not ported yet; the ssm and hybrid configs come with the "
-            f"next LM-families slice of the PyTorch port (ROADMAP.md, Queue 1); "
-            f"ported: {list_configs()}"
-        )
     mod = importlib.import_module(f"repro_torch.configs.{_MODULE_OF[arch]}")
     return mod.smoke() if smoke else mod.FULL
 
 
 def list_configs() -> list[str]:
-    """The arch ids whose config module is ported."""
-    return [a for a in _MODULE_OF if _ported(a)]
+    return list(_MODULE_OF)
 
 
 def supported_shapes(cfg: ModelConfig) -> list[str]:

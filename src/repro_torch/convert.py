@@ -77,8 +77,9 @@ def lm_params_from_numpy(params, device="cuda"):
 
 def cache_from_numpy(cache, device="cuda"):
     """JAX ``init_cache``'s dict of host arrays (``k``, ``v``; int8 with
-    bf16 ``k_scale``/``v_scale`` when quantized; the 0-d int32 ``len``)
-    → the port's cache."""
+    bf16 ``k_scale``/``v_scale`` when quantized; the 0-d int32 ``len``;
+    the recurrent families' state and the hybrid's nested ``mamba``,
+    ``tail`` and ``shared`` ring) → the port's cache."""
     return _tree(cache, device)
 
 

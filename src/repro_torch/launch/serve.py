@@ -18,7 +18,11 @@ the JAX launcher does); ``--kv-int8`` keeps an int8 cache, whose
 attention runs the flash-decode CUDA kernel.  The device defaults to
 ``cuda``; there is no fallback to the CPU, which runs the kernels' plain
 versions only when asked for with ``--device cpu``.  A step that would
-write past ``--max-seq`` raises (JAX clamps the write silently).  A vlm
+write past ``--max-seq`` of an attention cache raises (JAX clamps the
+write silently); the recurrent families' state has no length, and the
+hybrid's shared-attention ring (``min(4096, --max-seq)`` slots) wraps, so
+they decode past ``--max-seq`` as the reference's do
+(``--arch xlstm-125m``, ``--arch zamba2-7b``).  A vlm
 model (``--arch llama-3.2-vision-11b``) is served with zero image
 embeddings ``(slots, num_image_tokens, d_model)``; an audio model is
 refused with ``SystemExit``, as the reference's launcher refuses it.  The
@@ -41,7 +45,7 @@ from repro_torch.models.layers import Params, count_params, tree_leaves
 from repro_torch.models.transformer import init_lm
 from repro_torch.serve.batching import Request, RequestBatcher
 from repro_torch.serve.decode import decode_step
-from repro_torch.serve.kvcache import cache_bytes, init_cache
+from repro_torch.serve.kvcache import cache_bytes, cache_slots, init_cache
 
 PROMPT_LEN = 4  # the JAX launcher's prompt length
 
@@ -65,7 +69,7 @@ def parse_args(argv=None):
 def build(cfg: ModelConfig, slots: int, max_seq: int, *, kv_int8: bool, device,
           seed: int = 0):
     """Random weights from ``torch.Generator(device).manual_seed(seed)`` and
-    an empty cache."""
+    an empty cache (``kv_int8`` applies to the attention families only)."""
     params = init_lm(torch.Generator(device=device).manual_seed(seed), cfg)
     cache = init_cache(cfg, slots, max_seq, quant=kv_int8, device=device)
     return params, cache
@@ -95,16 +99,18 @@ def serve(params: Params, cfg: ModelConfig, cache: Dict, requests: List[Request]
           enc: Optional[torch.Tensor] = None) -> Dict:
     """Serves ``requests`` to the end through one ``RequestBatcher`` over
     the cache's slots (``enc``: a vlm model's image embeddings, one row a
-    slot).  Returns the batcher's metrics with the step count, each
+    slot); only a cache with K/V of a fixed length (``"k"``) refuses a
+    step past it.  Returns the batcher's metrics with the step count, each
     step's wall time (decode step + greedy argmax on the host) and
     throughput."""
-    slots, max_seq = cache["k"].shape[1], cache["k"].shape[2]
+    slots = cache_slots(cache)
+    max_seq = cache["k"].shape[2] if "k" in cache else None
     device = cache["len"].device
     start = int(cache["len"])  # the one host read of the length; steps count on from it
     step_s: List[float] = []
 
     def dstep(tokens: np.ndarray) -> np.ndarray:
-        if start + len(step_s) >= max_seq:
+        if max_seq is not None and start + len(step_s) >= max_seq:
             raise ValueError(f"decode step at length {start + len(step_s)} would write "
                              f"past max_seq={max_seq}")
         t0 = time.perf_counter()

@@ -12,9 +12,9 @@ Usage::
     PYTHONPATH=src python -m repro_torch.launch.train [--full]
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --steps 3
 
-``--arch`` defaults to ``stablelm-3b``, whose smoke config is the dense
-family; the reference's default, ``xlstm-125m``, is the ssm family, which
-the port does not have yet.  The batches follow the reference's launcher:
+``--arch`` defaults to ``xlstm-125m`` (the ssm family), as the
+reference's does; ``--arch zamba2-7b`` trains the hybrid family.  The
+batches follow the reference's launcher:
 a vlm model (``--arch llama-3.2-vision-11b``) gets zero image embeddings
 ``(batch, num_image_tokens, d_model)`` in the model dtype, an audio model
 (``--arch musicgen-medium``) the batcher's tokens and labels repeated over
@@ -50,7 +50,7 @@ from repro_torch.train.optimizer import AdamW, make_schedule
 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="stablelm-3b")
+    ap.add_argument("--arch", default="xlstm-125m")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=64)

@@ -1,8 +1,7 @@
-"""Decoder LM of the attention families: parameters, full-sequence
-forward and the training loss.
+"""Decoder LM of every family: parameters, full-sequence forward and the
+training loss.
 
-The port of ``repro.models.transformer`` for the families built on its
-attention blocks:
+The port of ``repro.models.transformer``:
 
   dense  — pre-norm GQA attention + (Sw/Ge)GLU MLP blocks;
   moe    — the MLP replaced by a top-k expert layer
@@ -13,25 +12,40 @@ attention blocks:
            (``layers = {"super": (n_super, period, …), "cross":
            (n_super, …)}``);
   audio  — ``num_codebooks`` embeddings summed at the input and as many
-           heads out (``embed_{c}``/``head_{c}``; logits ``(b, K, s, V)``).
+           heads out (``embed_{c}``/``head_{c}``; logits ``(b, K, s, V)``);
+  ssm    — xLSTM (:mod:`repro_torch.models.xlstm`): mLSTM blocks with an
+           sLSTM block at every ``i % slstm_every == 0``, no FFN
+           (``layers = {"slstm": (n_s, …), "mlstm": (n_m, …)}``); from
+           ``MLSTM_CHUNK_THRESHOLD`` tokens the mLSTM runs chunkwise;
+  hybrid — zamba2: a Mamba2 backbone (:mod:`repro_torch.models.mamba2`)
+           with ONE shared attention block applied after every
+           ``shared_attn_period`` Mamba2 layers, one set of parameters for
+           every application (``layers = {"super": (n_super, period, …),
+           "shared_attn", "tail"}``, ``"tail"`` holding the layers past the
+           last whole superblock, when there are any).
 
 ``init_lm`` keeps JAX's leaf names, nesting and shapes (layer parameters
 stacked on leading axes as JAX's ``stack_layers`` does, the vocab padded
 to ``cfg.padded_vocab``), so ``convert.lm_params_from_numpy`` and the
 checkpoints carry trees across unchanged.  ``forward`` runs the embedding
 gather, the blocks, the final norm and the head(s); sequences of at least
-``CHUNKED_ATTN_THRESHOLD`` tokens take ``chunked_self_attention``.  JAX's
+``CHUNKED_ATTN_THRESHOLD`` tokens take ``chunked_self_attention`` (the
+hybrid's shared attention then with a window of 4,096).  JAX's
 ``lax.scan`` over stacked layers is a Python loop over layer views;
-``remat=True`` wraps each block (and each vlm superblock) in
-``torch.utils.checkpoint`` where JAX wraps it in ``jax.checkpoint``.
-One-token decode is ``repro_torch.serve.decode``.
+``remat=True`` wraps each block (each vlm, xlstm and zamba superblock;
+each mLSTM block when there is no sLSTM) in ``torch.utils.checkpoint``
+where JAX wraps it in ``jax.checkpoint``.  One-token decode is
+``repro_torch.serve.decode``.
 
-The recurrent families (ssm, hybrid) raise ``NotImplementedError``: they
-come with the next LM-families slice of the port (ROADMAP.md, Queue 1).
+One deliberate difference: at ``slstm_every = 0`` JAX's ``init_lm``
+raises (``stack_layers`` of the empty sLSTM list); the port leaves the
+``"slstm"`` key out, the tree the reference's forward and decode read in
+that case.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -40,6 +54,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba2, xlstm
 from repro_torch.models.layers import (
     Params,
     tree_leaves,
@@ -53,16 +68,6 @@ from repro_torch.models.layers import (
     tree_map,
 )
 from repro_torch.models.moe import apply_moe, apply_moe_shardmap, init_moe
-
-ATTENTION_FAMILIES = ("dense", "moe", "vlm", "audio")
-_NOT_PORTED = ("is not ported yet; the ssm and hybrid families come with the next "
-               "LM-families slice of the PyTorch port (ROADMAP.md, Queue 1)")
-
-
-def _require_attention_family(fn: str, cfg: ModelConfig) -> None:
-    if cfg.family not in ATTENTION_FAMILIES:
-        raise NotImplementedError(f"{fn}: family {cfg.family!r} {_NOT_PORTED}")
-
 
 def _init_block(generator: torch.Generator, cfg: ModelConfig) -> Params:
     """One decoder block (dense/moe/audio families, vlm self blocks)."""
@@ -120,10 +125,61 @@ def vlm_superblocks(cfg: ModelConfig) -> tuple[int, int]:
     return n_super, period
 
 
+def num_slstm(cfg: ModelConfig) -> int:
+    """The xlstm stack's sLSTM layers: ``i % slstm_every == 0``."""
+    if not cfg.slstm_every:
+        return 0
+    return sum(1 for i in range(cfg.num_layers) if i % cfg.slstm_every == 0)
+
+
+def zamba_layout(cfg: ModelConfig) -> tuple[int, int, int]:
+    """``(n_super, period, n_tail)``: a hybrid stack is ``n_super``
+    superblocks of ``period`` Mamba2 layers, each closed by the shared
+    attention, then ``n_tail`` Mamba2 layers."""
+    period = cfg.shared_attn_period
+    n_super = cfg.num_layers // period
+    return n_super, period, cfg.num_layers - n_super * period
+
+
+def _init_xlstm_layers(generator: torch.Generator, cfg: ModelConfig) -> Params:
+    dtype, device = cfg.torch_dtype, generator.device
+
+    def block(init_cell):
+        return lambda: {"norm": init_norm(cfg.d_model, cfg.norm, dtype, device),
+                        "cell": init_cell(generator, cfg.d_model, cfg.num_heads, dtype)}
+
+    n_s = num_slstm(cfg)
+    layers = {"mlstm": _stacked(cfg.num_layers - n_s, block(xlstm.init_mlstm))}
+    if n_s:
+        layers["slstm"] = _stacked(n_s, block(xlstm.init_slstm))
+    return layers
+
+
+def _init_zamba_layers(generator: torch.Generator, cfg: ModelConfig) -> Params:
+    dtype, device = cfg.torch_dtype, generator.device
+    n_super, period, n_tail = zamba_layout(cfg)
+
+    def block():
+        return {"norm": init_norm(cfg.d_model, cfg.norm, dtype, device),
+                "mamba": mamba2.init_mamba2(generator, cfg.d_model, cfg.ssm_state, dtype)}
+
+    body = _stacked(n_super * period, block)
+    out = {
+        "super": tree_map(lambda x: x.reshape(n_super, period, *x.shape[1:]), body),
+        "shared_attn": {
+            "norm": init_norm(cfg.d_model, cfg.norm, dtype, device),
+            "attn": attn.init_attention(generator, cfg.d_model, cfg.num_heads, cfg.kv_heads,
+                                        cfg.resolved_head_dim, dtype),
+        },
+    }
+    if n_tail:
+        out["tail"] = _stacked(n_tail, block)
+    return out
+
+
 def init_lm(generator: torch.Generator, cfg: ModelConfig) -> Params:
-    """The parameter tree of an LM of an attention family, on the
-    generator's device.  Layers are drawn one at a time (:func:`_stacked`)."""
-    _require_attention_family("init_lm", cfg)
+    """The parameter tree of an LM of any family, on the generator's
+    device.  Layers are drawn one at a time (:func:`_stacked`)."""
     dtype, device = cfg.torch_dtype, generator.device
     params: Params = {"final_norm": init_norm(cfg.d_model, cfg.norm, dtype, device)}
     V = cfg.padded_vocab
@@ -136,7 +192,11 @@ def init_lm(generator: torch.Generator, cfg: ModelConfig) -> Params:
         if not cfg.tie_embeddings:
             params["lm_head"] = dense_init(generator, cfg.d_model, V, dtype)
 
-    if cfg.family == "vlm":
+    if cfg.family == "ssm":
+        params["layers"] = _init_xlstm_layers(generator, cfg)
+    elif cfg.family == "hybrid":
+        params["layers"] = _init_zamba_layers(generator, cfg)
+    elif cfg.family == "vlm":
         n_super, period = vlm_superblocks(cfg)
         blocks = _stacked(n_super * period, lambda: _init_block(generator, cfg))
         params["layers"] = {
@@ -152,6 +212,14 @@ def init_lm(generator: torch.Generator, cfg: ModelConfig) -> Params:
 
 
 CHUNKED_ATTN_THRESHOLD = 4096  # seqs >= this use flash-style chunked attention
+
+
+def _maybe_remat(remat: bool, fn, *args):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` when ``remat`` and
+    gradients are on (JAX's ``jax.checkpoint``)."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def _block_fwd(p: Params, x, cfg: ModelConfig, positions):
@@ -184,11 +252,7 @@ def _scan_blocks(stacked: Params, x, cfg: ModelConfig, positions, *, remat=False
     each block's activations in backward.  Returns ``(x, summed aux)``."""
     auxs = []
     for i in range(tree_leaves(stacked)[0].shape[0]):
-        layer_p = layer_slice(stacked, i)
-        if remat and torch.is_grad_enabled():
-            x, aux = checkpoint(_block_fwd, layer_p, x, cfg, positions, use_reentrant=False)
-        else:
-            x, aux = _block_fwd(layer_p, x, cfg, positions)
+        x, aux = _maybe_remat(remat, _block_fwd, layer_slice(stacked, i), x, cfg, positions)
         auxs.append(aux)
     return x, torch.stack(auxs).sum()
 
@@ -221,30 +285,32 @@ def forward(
     model dtype, ``aux_loss`` the float32 sum of the layers' expert
     load-balancing losses (zero without experts).  The vlm family needs
     ``enc``; the others ignore it, as in the reference."""
-    _require_attention_family("forward", cfg)
     if cfg.family == "audio":
         x = sum(params[f"embed_{c}"][tokens[:, c].long()] for c in range(cfg.num_codebooks))
     else:
         x = params["embed"][tokens.long()]
     s = tokens.shape[-1]
     positions = torch.arange(s, device=x.device)[None, :]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
-    if cfg.family == "vlm":
+    if cfg.family in ("dense", "moe", "audio"):
+        x, aux = _scan_blocks(params["layers"], x, cfg, positions, remat=remat)
+    elif cfg.family == "vlm":
         if enc is None:
             raise ValueError("forward: the vlm family needs image embeddings (enc=)")
         layers = params["layers"]
         auxs = []
         for i in range(vlm_superblocks(cfg)[0]):
-            args = (layer_slice(layers["super"], i), layer_slice(layers["cross"], i), x, enc,
-                    cfg, positions, remat)
-            if remat and torch.is_grad_enabled():
-                x, aux = checkpoint(_superblock_fwd, *args, use_reentrant=False)
-            else:
-                x, aux = _superblock_fwd(*args)
+            x, aux = _maybe_remat(remat, _superblock_fwd, layer_slice(layers["super"], i),
+                                  layer_slice(layers["cross"], i), x, enc, cfg, positions, remat)
             auxs.append(aux)
         aux = torch.stack(auxs).sum()
+    elif cfg.family == "ssm":
+        x = _xlstm_forward(params["layers"], x, cfg, remat=remat)
+    elif cfg.family == "hybrid":
+        x = _zamba_forward(params["layers"], x, cfg, positions, remat=remat)
     else:
-        x, aux = _scan_blocks(params["layers"], x, cfg, positions, remat=remat)
+        raise ValueError(f"unknown family {cfg.family}")
 
     x = apply_norm(params["final_norm"], x, cfg.norm)
     if cfg.family == "audio":
@@ -252,6 +318,80 @@ def forward(
                            dim=1), aux
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return x @ head, aux
+
+
+MLSTM_CHUNK_THRESHOLD = 256  # seqs >= this use the chunkwise-parallel mLSTM
+
+
+def _mlstm_apply(cell_p, x, num_heads):
+    """The chunkwise-parallel mLSTM for long sequences, the sequential
+    scan for short ones."""
+    if x.shape[1] >= MLSTM_CHUNK_THRESHOLD:
+        y, _ = xlstm.mlstm_chunked(cell_p, x, num_heads)
+    else:
+        y, _ = xlstm.mlstm_scan(cell_p, x, num_heads)
+    return y
+
+
+def _mlstm_block(mp: Params, x, cfg: ModelConfig):
+    return x + _mlstm_apply(mp["cell"], apply_norm(mp["norm"], x, cfg.norm), cfg.num_heads)
+
+
+def _xlstm_superblock(s_p: Params, m_p: Params, x, cfg: ModelConfig):
+    """One sLSTM block, then the mLSTM blocks stacked in ``m_p``."""
+    h, _ = xlstm.slstm_scan(s_p["cell"], apply_norm(s_p["norm"], x, cfg.norm), cfg.num_heads)
+    x = x + h
+    for j in range(tree_leaves(m_p)[0].shape[0]):
+        x = _mlstm_block(layer_slice(m_p, j), x, cfg)
+    return x
+
+
+def _xlstm_forward(layers: Params, x, cfg: ModelConfig, *, remat: bool = False):
+    """Alternating sLSTM / mLSTM blocks: sLSTM at ``i % slstm_every == 0``."""
+    period = cfg.slstm_every or cfg.num_layers + 1
+    n_s = layers["slstm"]["norm"]["scale"].shape[0] if "slstm" in layers else 0
+    if n_s:
+        m_stacked = tree_map(lambda a: a.reshape(n_s, period - 1, *a.shape[1:]), layers["mlstm"])
+        for i in range(n_s):
+            x = _maybe_remat(remat, _xlstm_superblock, layer_slice(layers["slstm"], i),
+                             layer_slice(m_stacked, i), x, cfg)
+    else:
+        for j in range(tree_leaves(layers["mlstm"])[0].shape[0]):
+            x = _maybe_remat(remat, _mlstm_block, layer_slice(layers["mlstm"], j), x, cfg)
+    return x
+
+
+def _mamba_block(mp: Params, x, cfg: ModelConfig):
+    return x + mamba2.apply_mamba2(mp["mamba"], apply_norm(mp["norm"], x, cfg.norm),
+                                   ssm_state=cfg.ssm_state)
+
+
+def _zamba_superblock(mp: Params, shared: Params, x, cfg: ModelConfig, positions, attn_fn):
+    """The Mamba2 blocks stacked in ``mp``, then the shared attention."""
+    for j in range(tree_leaves(mp)[0].shape[0]):
+        x = _mamba_block(layer_slice(mp, j), x, cfg)
+    return x + attn_fn(
+        shared["attn"], apply_norm(shared["norm"], x, cfg.norm),
+        num_heads=cfg.num_heads, kv_heads=cfg.kv_heads, head_dim=cfg.resolved_head_dim,
+        positions=positions, rope_theta=cfg.rope_theta,
+    )
+
+
+def _zamba_forward(layers: Params, x, cfg: ModelConfig, positions, *, remat: bool = False):
+    """The Mamba2 backbone with ONE shared attention block after every
+    ``period`` layers; from ``CHUNKED_ATTN_THRESHOLD`` tokens the shared
+    attention is chunked and windowed (4,096)."""
+    if x.shape[1] >= CHUNKED_ATTN_THRESHOLD:
+        attn_fn = functools.partial(attn.chunked_self_attention, window=4096)
+    else:
+        attn_fn = attn.self_attention
+    for i in range(layers["super"]["norm"]["scale"].shape[0]):
+        x = _maybe_remat(remat, _zamba_superblock, layer_slice(layers["super"], i),
+                         layers["shared_attn"], x, cfg, positions, attn_fn)
+    if "tail" in layers:
+        for j in range(tree_leaves(layers["tail"])[0].shape[0]):
+            x = _mamba_block(layer_slice(layers["tail"], j), x, cfg)
+    return x
 
 
 # ============================================================= loss ======

@@ -1,12 +1,11 @@
 """decode_step: one-token decode of an LM over a KV cache.
 
-The port of ``repro.serve.decode`` for the attention families (dense,
-moe, vlm, audio).  JAX's
-``lax.scan`` over stacked layers becomes a Python loop over layer views;
-the cache is updated IN PLACE (JAX returns a new cache): the read-only
-path writes every layer's new K/V with one ``index_copy_`` at the
-device-side ``len`` after the loop, the writing path inside each layer.
-Either way the host never reads ``len``.
+The port of ``repro.serve.decode``.  JAX's ``lax.scan`` over stacked
+layers becomes a Python loop over layer views; the cache is updated IN
+PLACE (JAX returns a new cache): the read-only path writes every layer's
+new K/V with one ``index_copy_`` at the device-side ``len`` after the
+loop, the writing path inside each layer.  Either way the host never
+reads ``len``.
 
 An int8 cache (keys ``k_scale``/``v_scale`` present) takes the read-only
 path, whose attention runs the flash-decode kernel; new K/V are
@@ -19,22 +18,33 @@ tokens are ``(b, K, 1)`` and the logits ``(b, K, 1, V)``.  The vlm family
 takes the writing path over its self-attention layers, viewed
 ``(n_super, period, …)``, with a cross-attention block over ``enc``
 closing each superblock, whatever ``readonly_cache`` says (as in JAX).
+
+The recurrent families step their O(1) state: xlstm (ssm) runs each
+sLSTM/mLSTM scan at ``s = 1`` from the layer's state, zamba2 (hybrid)
+each Mamba2 recurrence and, after every superblock, the shared attention
+over its ring of ``W`` slots.  Each new state is ``copy_``-ed into the
+cache's tensor.  The ring slot is ``len % W`` on the device, written
+with ``index_copy_`` (with the absolute position in ``pos``); writing
+past ``W`` wraps by design, where the dense cache's write past
+``max_seq`` raises.  A slot takes part when ``0 <= pos <= len``, masked
+before the float32 softmax.  Both of the hybrid's lengths (``len`` and
+``shared["len"]``) count up in place.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba2, xlstm
 from repro_torch.models.layers import apply_mlp, apply_norm, layer_slice
 from repro_torch.models.moe import apply_moe
+from repro_torch.models.rope import apply_rope
 from repro_torch.models.transformer import cross_block_fwd, vlm_superblocks
-
-_NOT_PORTED = ("is not ported yet; the ssm and hybrid families come with the next "
-               "LM-families slice of the PyTorch port (ROADMAP.md, Queue 1)")
 
 
 def _attn_kwargs(cfg: ModelConfig) -> dict:
@@ -95,7 +105,11 @@ def decode_step(
         return _decode_attn_family(params, cfg, tokens, cache)
     if cfg.family == "vlm":
         return _decode_vlm(params, cfg, tokens, cache, enc)
-    raise NotImplementedError(f"decode_step: family {cfg.family!r} {_NOT_PORTED}")
+    if cfg.family == "ssm":
+        return _decode_xlstm(params, cfg, tokens, cache)
+    if cfg.family == "hybrid":
+        return _decode_zamba(params, cfg, tokens, cache)
+    raise ValueError(cfg.family)
 
 
 def _embed_tokens(params, cfg: ModelConfig, tokens):
@@ -189,3 +203,96 @@ def _decode_vlm(params, cfg, tokens, cache, enc):
     length.add_(1)
     x = apply_norm(params["final_norm"], x, cfg.norm)
     return _project_logits(params, cfg, x), cache
+
+
+def _write_state(dst: tuple, src: tuple) -> None:
+    for d, v in zip(dst, src):
+        d.copy_(v)
+
+
+def _decode_xlstm(params, cfg, tokens, cache):
+    """Every sLSTM block followed by its ``period - 1`` mLSTM blocks; with
+    no sLSTM (``slstm_every = 0``) the mLSTM blocks alone."""
+    x = params["embed"][tokens.long()]
+    layers = params["layers"]
+    n_s = cache["s_c"].shape[0]
+    n_m_per = cache["m_C"].shape[0] // max(n_s, 1)   # the mLSTM blocks after each sLSTM
+
+    def mlstm(x, j):
+        mp = layer_slice(layers["mlstm"], j)
+        st = (cache["m_C"][j], cache["m_n"][j], cache["m_m"][j])
+        y, new = xlstm.mlstm_decode_step(mp["cell"], apply_norm(mp["norm"], x, cfg.norm), st,
+                                         cfg.num_heads)
+        _write_state(st, new)
+        return x + y
+
+    for i in range(max(n_s, 1)):
+        if n_s:
+            sp = layer_slice(layers["slstm"], i)
+            st = (cache["s_c"][i], cache["s_n"][i], cache["s_h"][i], cache["s_m"][i])
+            y, new = xlstm.slstm_decode_step(sp["cell"], apply_norm(sp["norm"], x, cfg.norm),
+                                             st, cfg.num_heads)
+            _write_state(st, new)
+            x = x + y
+        for j in range(n_m_per):
+            x = mlstm(x, i * n_m_per + j)
+    cache["len"].add_(1)
+    x = apply_norm(params["final_norm"], x, cfg.norm)
+    return _project_logits(params, cfg, x), cache
+
+
+def _mamba_decode(mp, x, h, conv, cfg: ModelConfig):
+    y, h_new, conv_new = mamba2.mamba2_decode_step(
+        mp["mamba"], apply_norm(mp["norm"], x, cfg.norm), h, conv, ssm_state=cfg.ssm_state)
+    _write_state((h, conv), (h_new, conv_new))
+    return x + y
+
+
+def _decode_zamba(params, cfg, tokens, cache):
+    """Each superblock's Mamba2 layers, then the shared attention over the
+    superblock's ring; the tail's Mamba2 layers last."""
+    x = params["embed"][tokens.long()]
+    layers = params["layers"]
+    length = cache["len"]
+    period = cfg.shared_attn_period
+    ring, state = cache["shared"], cache["mamba"]
+    for i in range(layers["super"]["norm"]["scale"].shape[0]):
+        sp = layer_slice(layers["super"], i)
+        for j in range(period):
+            layer = i * period + j
+            x = _mamba_decode(layer_slice(sp, j), x, state["h"][layer], state["conv"][layer], cfg)
+        x = _ring_attention_at(layers["shared_attn"], x, ring["k"][i], ring["v"][i],
+                               ring["pos"][i], length, cfg)
+    if "tail" in layers:
+        tail = cache["tail"]
+        for j in range(layers["tail"]["norm"]["scale"].shape[0]):
+            x = _mamba_decode(layer_slice(layers["tail"], j), x, tail["h"][j], tail["conv"][j],
+                              cfg)
+    ring["len"].add_(1)
+    length.add_(1)
+    x = apply_norm(params["final_norm"], x, cfg.norm)
+    return _project_logits(params, cfg, x), cache
+
+
+def _ring_attention_at(p, x, kc, vc, pc, length, cfg: ModelConfig):
+    """The shared attention at position ``len`` over one layer's ring
+    ``kc``/``vc`` ``(b, W, kvh, hd)`` and positions ``pc`` ``(b, W)``,
+    written in place at slot ``len % W``.  Returns ``x + out``."""
+    b = x.shape[0]
+    hd = cfg.resolved_head_dim
+    W = kc.shape[1]
+    pos = length.to(torch.int32).expand(b, 1)
+    q, k, v = attn._project(p["attn"], apply_norm(p["norm"], x, cfg.norm), cfg.num_heads,
+                            cfg.kv_heads, hd)
+    q = apply_rope(q, pos, theta=cfg.rope_theta)
+    k = apply_rope(k, pos, theta=cfg.rope_theta)
+
+    slot = length % W
+    attn.write_at(kc, 1, slot, k)
+    attn.write_at(vc, 1, slot, v)
+    attn.write_at(pc, 1, slot, pos)
+    scores = attn._gqa_scores(q, kc).float() / math.sqrt(hd)
+    valid = (pc >= 0) & (pc <= length)
+    scores = torch.where(valid[:, None, None, None, :], scores, -1e30)
+    w = torch.softmax(scores, dim=-1).to(x.dtype)
+    return x + attn._gqa_out(w, vc) @ p["attn"]["wo"]

@@ -60,7 +60,9 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
                 "repro_torch.configs.granite_moe_3b_a800m", "repro_torch.configs.grok_1_314b",
                 "repro_torch.configs.minicpm_2b", "repro_torch.configs.command_r_35b",
                 "repro_torch.configs.llama_3_2_vision_11b",
-                "repro_torch.configs.musicgen_medium"):
+                "repro_torch.configs.musicgen_medium", "repro_torch.models.xlstm",
+                "repro_torch.models.mamba2", "repro_torch.configs.xlstm_125m",
+                "repro_torch.configs.zamba2_7b"):
         assert mod in res["modules"]
 
 

@@ -77,13 +77,12 @@ def test_configs_equal_jax(arch, smoke):
 
 def test_registry():
     assert {"chatglm3-6b", "stablelm-3b", "dlrm-recross"} <= set(list_configs())
-    assert set(list_configs()) <= set(j_base.list_configs())
+    assert list_configs() == j_base.list_configs()
     assert get_config("dlrm-recross", smoke=True).name == "dlrm-recross"
     assert {k: dataclasses.asdict(v) for k, v in t_base.SHAPES.items()} == {
         k: dataclasses.asdict(v) for k, v in j_base.SHAPES.items()}
-    for arch in ("xlstm-125m", "zamba2-7b"):    # ssm and hybrid: the next slice
-        with pytest.raises(NotImplementedError, match="not ported"):
-            get_config(arch)
+    for arch in ("xlstm-125m", "zamba2-7b"):    # ssm and hybrid, ported with their slice
+        assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(j_get_config(arch))
     with pytest.raises(KeyError):
         get_config("no-such-model")
 
@@ -223,6 +222,10 @@ def test_init_lm_tree_matches_jax(arch):
 
 
 def test_init_lm_bf16_converts_bit_for_bit_and_other_families_raise():
+    """chatglm3-6b's bf16 tree carried across bit for bit.  The ssm and
+    hybrid families, which raised until their slice, now build JAX's
+    trees (names, shapes, dtypes; the f32 gate and state parameters stay
+    f32)."""
     cfg = dataclasses.replace(j_get_config("chatglm3-6b", smoke=True), dtype="bfloat16")
     j_params = j_init_lm(jax.random.PRNGKey(0), cfg)
     t = lm_params_from_numpy(jax.tree.map(np.asarray, j_params), "cpu")
@@ -230,10 +233,14 @@ def test_init_lm_bf16_converts_bit_for_bit_and_other_families_raise():
         assert a.dtype == torch.bfloat16, path
         np.testing.assert_array_equal(a.view(torch.int16).numpy(),
                                       np.asarray(j).view(np.int16), err_msg=path)
-    for family in ("ssm", "hybrid"):
-        other = dataclasses.replace(get_config("chatglm3-6b", smoke=True), family=family)
-        with pytest.raises(NotImplementedError, match="LM-families slice"):
-            init_lm(torch.Generator().manual_seed(0), other)
+    for arch in ("xlstm-125m", "zamba2-7b"):
+        other = dataclasses.replace(get_config(arch, smoke=True), dtype="bfloat16")
+        j_other = dataclasses.replace(j_get_config(arch, smoke=True), dtype="bfloat16")
+        t_params = init_lm(torch.Generator().manual_seed(0), other)
+        for path, a, j in _tree_pairs(t_params, jax.eval_shape(
+                lambda: j_init_lm(jax.random.PRNGKey(0), j_other))):
+            assert tuple(a.shape) == j.shape, path
+            assert str(a.dtype).removeprefix("torch.") == str(j.dtype), path
 
 
 def _decode_both(arch, quant, readonly, steps=8, b=2, max_seq=16):
@@ -308,9 +315,21 @@ def test_cache_shapes_and_bytes(arch, quant):
 
 
 def test_cache_of_an_unported_family_raises():
-    cfg = dataclasses.replace(get_config("chatglm3-6b", smoke=True), family="hybrid")
-    with pytest.raises(NotImplementedError):
+    """A family with no cache raises ``ValueError`` as the reference's
+    does; the hybrid family, which raised until its slice, now builds
+    JAX's cache (its ring, Mamba2 state and two lengths)."""
+    cfg = dataclasses.replace(get_config("chatglm3-6b", smoke=True), family="recsys")
+    with pytest.raises(ValueError, match="no cache"):
         init_cache(cfg, 1, 16, device="cpu")
+    with pytest.raises(ValueError, match="no cache"):
+        jkv.init_cache(dataclasses.replace(j_get_config("chatglm3-6b", smoke=True),
+                                           family="recsys"), 1, 16)
+    cache = init_cache(get_config("zamba2-7b", smoke=True), 1, 16, device="cpu")
+    j_cache = jkv.init_cache(j_get_config("zamba2-7b", smoke=True), 1, 16)
+    for path, a, j in _tree_pairs(cache, j_cache):
+        assert tuple(a.shape) == j.shape, path
+        np.testing.assert_array_equal(a.numpy(), np.asarray(j), err_msg=path)
+    assert cache_bytes(cache) == jkv.cache_bytes(j_cache)
 
 
 def test_full_int8_cache_bytes_per_token():

@@ -187,11 +187,25 @@ def test_forward_agrees_with_decode_step(arch):
 
 
 def test_other_families_raise():
-    """The recurrent families (ssm, hybrid) wait for the next slice."""
-    toks = torch.zeros((1, 4), dtype=torch.int32)
-    for family in ("ssm", "hybrid"):
-        cfg = dataclasses.replace(get_config("chatglm3-6b", smoke=True), family=family)
-        with pytest.raises(NotImplementedError, match="LM-families slice"):
-            ttf.forward({}, cfg, toks)
-        with pytest.raises(NotImplementedError, match="LM-families slice"):
-            ttf.lm_loss({}, cfg, toks, toks)
+    """A family neither package has raises ``ValueError`` in ``forward``
+    and ``lm_loss``, as JAX's ``forward`` does.  The recurrent families
+    (ssm, hybrid), which raised until their slice, now compute JAX's
+    logits and loss."""
+    toks = np.random.default_rng(0).integers(0, 256, size=(1, 4)).astype(np.int32)
+    t_toks = torch.from_numpy(toks)
+    _, cfg, jp, tp, _, _ = _lm_case("chatglm3-6b", b=1, s=4)
+    other = dataclasses.replace(cfg, family="recsys")
+    with pytest.raises(ValueError, match="unknown family"):
+        ttf.forward(tp, other, t_toks)
+    with pytest.raises(ValueError, match="unknown family"):
+        ttf.lm_loss(tp, other, t_toks, t_toks)
+    with pytest.raises(ValueError, match="unknown family"):
+        jtf.forward(jp, dataclasses.replace(j_get_config("chatglm3-6b", smoke=True),
+                                            family="recsys"), jnp.asarray(toks))
+    for arch in ("xlstm-125m", "zamba2-7b"):
+        j_cfg, cfg, jp, tp, _, _ = _lm_case(arch, b=1, s=4)
+        want, _ = jtf.forward(jp, j_cfg, jnp.asarray(toks))
+        got, _ = ttf.forward(tp, cfg, t_toks)
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **STEP_TOL)
+        np.testing.assert_allclose(float(ttf.lm_loss(tp, cfg, t_toks, t_toks)),
+                                   float(jtf.lm_loss(jp, j_cfg, toks, toks)), **STEP_TOL)

@@ -273,11 +273,11 @@ def test_train_loss_falls_over_30_steps():
 def test_launcher_runs_and_resumes(tmp_path):
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     cmd = [sys.executable, "-m", "repro_torch.launch.train", "--device", "cpu",
-           "--save-every", "2", "--ckpt-dir", str(tmp_path)]
+           "--batch", "4", "--seq", "16", "--save-every", "2", "--ckpt-dir", str(tmp_path)]
     first = subprocess.run(cmd + ["--steps", "3"], capture_output=True, text=True,
                            env=env, cwd=ROOT, timeout=120)
     assert first.returncode == 0, first.stderr
-    assert "arch=stablelm-3b family=dense" in first.stdout
+    assert "arch=xlstm-125m family=ssm" in first.stdout     # the reference's default
     losses = [float(l.split()[3]) for l in first.stdout.splitlines() if l.startswith("step")]
     assert losses and all(np.isfinite(losses))
     assert sorted(os.listdir(tmp_path)) == ["step_000000002"]
@@ -290,8 +290,8 @@ def test_launcher_runs_and_resumes(tmp_path):
 
 def test_launcher_defaults_to_cuda():
     args = ltrain.parse_args([])
-    assert args.device == "cuda" and args.arch == "stablelm-3b" and not args.full
-    assert get_config(args.arch, smoke=True).family == "dense"
+    assert args.device == "cuda" and args.arch == "xlstm-125m" and not args.full
+    assert get_config(args.arch, smoke=True).family == "ssm"
 
 
 # --------------------------------------------------------------- data --
