@@ -9,8 +9,10 @@ embedding-bag kernel as the naive datapath, at the full sizes of the
 ``dlrm-recross`` model; then int8-KV LM decode serving of ``chatglm3-6b``
 FULL through the flash-decode attention kernel, LM training, the
 moe, vlm and audio families (``granite-moe-3b-a800m`` FULL served through
-the kernel), and the recurrent ssm and hybrid families (``xlstm-125m`` and
-``zamba2-7b`` FULL served, which launch none of the kernels) — and holds
+the kernel), the recurrent ssm and hybrid families (``xlstm-125m`` and
+``zamba2-7b`` FULL served, which launch none of the kernels), and the
+distribution layer (the LM trained on a device mesh, the elastic
+restart, GPipe pipelines; no kernel either) — and holds
 every CUDA kernel of those paths against its plain PyTorch version on the
 card.
 Phases, in order; any failure propagates and the process exits non-zero:
@@ -169,7 +171,31 @@ Phases, in order; any failure propagates and the process exits non-zero:
    (one superblock and a 1-layer tail) trained 4 AdamW steps of 8 x 512
    (steps 2-3 over 2 microbatches; matmul FLOPs share, peak memory, one
    traced step; the sLSTM's share of the xlstm step).  The phase launches
-   none of the four kernels, and fails if it does.
+   none of the four kernels, and fails if it does;
+13. LM mesh: the distribution layer (``dist.sharding``, ``launch.mesh``,
+   ``launch.dryrun``'s specs, ``dist.pipeline_parallel``).  In a world of 1
+   on NCCL, on ``make_host_mesh()``'s (1, 1) mesh: ``chatglm3-6b`` at its
+   widths and 4 of 28 layers, parameters and AdamW state laid out by
+   ``param_specs_for``/``opt_state_specs``, the batch by ``batch_specs``,
+   3 AdamW steps of 8 x 512 inside ``activation_sharding_ctx`` against the
+   same steps off the mesh, deterministic algorithms on in both: losses,
+   grad norms and every weight bit-equal (on one rank DTensor runs the
+   same local ops and its collectives are identities), and the steps
+   must have moved weights; step p50 and one traced step's host operators
+   on and off the mesh; ``granite-moe-3b-a800m`` at 8 of 32 layers, one
+   AdamW step with ``moe_impl="shardmap"`` on the mesh against
+   ``"gspmd"``, ``moe_groups=1`` off it, held the same way;
+   ``launch.elastic_restart.main`` (mesh A = mesh B = (1, 1), deterministic,
+   its checkpoint under ``build/``, deleted after); ``pipelined_apply`` at
+   one stage.  Then 4 gloo ranks on the one card (this process rank 0,
+   three spawned): ``pipelined_apply`` at the reference example's S 4 x M 8
+   x microbatch 16 x D 64 x 3 layers a stage, against the sequential
+   product within 1e-6 (f32, TF32 off).  DTensor's collectives are not run
+   over gloo on the card (its first all-gather of a CUDA tensor killed
+   every rank, PERF.md §7); the sharded forward and restart on (2, 2) are
+   proved in the CPU gloo worlds of the tests.  Each process group is
+   destroyed before the next is made.  The phase launches none of the
+   four kernels, and fails if it does.
 
 The kernels are built in parallel (one ``nvcc`` per source).  It then
 prints the host seconds of each phase, one ``{"kernels": [...]}`` line,
@@ -191,6 +217,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from datetime import timedelta
 from pathlib import Path
 from unittest import mock
 
@@ -312,6 +339,16 @@ REC_TRAIN_BATCH = (8, 512)
 REC_TRAIN_STEPS = 4
 REC_TRAIN_MB_FROM = 2                   # steps 2-3 over 2 microbatches
 ZAMBA_TRAIN_LAYERS = 7                  # of 81: one superblock of 6 and a 1-layer tail
+
+# lm-mesh: the distribution layer on the card
+MESH_LM_STEPS = 3                       # AdamW steps of chatglm3-6b at LM_TRAIN_LAYERS on (1, 1)
+MESH_LM_BATCH = (8, 512)
+MESH_LM_LR = 3e-4
+# S, M, microbatch, D, layers a stage: examples/pipeline_parallel.py:19
+MESH_PIPE = (4, 8, 16, 64, 3)
+MESH_PIPE_ATOL = 1e-6                   # float32, TF32 off
+MESH_WORLD = 4                          # gloo ranks on the one card
+MESH_GLOO_TIMEOUT_S = 120.0             # a rank that never joins or answers fails the phase
 
 
 def log(*parts) -> None:
@@ -3726,6 +3763,311 @@ def phase_lm_recurrent(torch, np, smi) -> dict:
     return stats
 
 
+def mesh_train(torch, np, cfg, state, batches, step_fn, mesh=None) -> dict:
+    """``step_fn`` over ``batches`` (on ``mesh`` inside the activation
+    context, the batch laid out by ``batch_specs``): the state, losses,
+    grad norms and step times (synchronized)."""
+    from repro_torch.dist import sharding as sh
+    from repro_torch.launch.dryrun import batch_specs
+
+    rules = sh.LOGICAL_RULES_SINGLE_POD
+    ctx = sh.activation_sharding_ctx(mesh, rules) if mesh is not None else \
+        contextlib.nullcontext()
+    losses, norms, ms = [], [], []
+    with ctx:
+        for tokens, labels in batches:
+            t0 = time.perf_counter()
+            batch = {"tokens": tokens, "labels": labels}
+            if mesh is not None:
+                batch = sh.distribute_tree(batch, batch_specs(batch, rules, mesh), mesh)
+            state, m = step_fn(state, batch)
+            # on the mesh both are replicated 0-d DTensors
+            loss, norm = (m[k].to_local() if mesh is not None else m[k]
+                          for k in ("loss", "grad_norm"))
+            losses.append(float(loss))
+            norms.append(float(norm))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+    return {"state": state, "losses": losses, "grad_norms": norms, "step_ms": ms,
+            "step_p50_ms": float(np.percentile(ms, 50))}
+
+
+def mesh_vs_plain(torch, np, cfg, opt, state0, batches, mesh, *, cfg_mesh=None,
+                  traced=True) -> dict:
+    """The same AdamW steps off the mesh and on ``mesh`` (the state laid out
+    by ``param_specs_for`` and ``opt_state_specs``) in deterministic mode,
+    one traced step of each.  Fails unless losses, grad norms and every
+    weight are bit-equal and the steps moved weights off their start."""
+    from repro_torch.dist import sharding as sh
+    from repro_torch.launch.dryrun import batch_specs
+    from repro_torch.launch.elastic_restart import state_specs
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.tree import flatten_with_names
+
+    cfg_mesh = cfg_mesh or cfg
+    out = {}
+    with deterministic(torch):
+        plain = mesh_train(torch, np, cfg, state0, batches, make_train_step(cfg, opt))
+        if traced:
+            step_fn = make_train_step(cfg, opt)
+            held = [plain["state"]]
+            tk, lb = batches[0]
+            out["plain_profile"] = profiled(torch, lambda: step_fn(held[0], {
+                "tokens": tk, "labels": lb}), 1)
+            del held
+        want = {n: t for n, t in flatten_with_names(plain.pop("state").params)}
+        start = dict(flatten_with_names(state0.params))
+        moved = sum(int((want[n] != start[n]).sum()) for n in want)
+        del start
+        on = sh.distribute_tree(state0, state_specs(state0, mesh), mesh)
+        step_fn = make_train_step(cfg_mesh, opt)
+        meshed = mesh_train(torch, np, cfg_mesh, on, batches, step_fn, mesh)
+        if traced:
+            held = [meshed["state"]]
+            rules = sh.LOGICAL_RULES_SINGLE_POD
+            tk, lb = batches[0]
+            b = sh.distribute_tree({"tokens": tk, "labels": lb},
+                                   batch_specs({"tokens": tk, "labels": lb}, rules, mesh), mesh)
+
+            def one():
+                with sh.activation_sharding_ctx(mesh, rules):
+                    step_fn(held[0], b)
+            out["mesh_profile"] = profiled(torch, one, 1)
+            del held
+        got = {n: t.full_tensor() for n, t in flatten_with_names(meshed.pop("state").params)}
+    werr = max(float((got[n].float() - want[n].float()).abs().max()) for n in want)
+    bit = (all(torch.equal(got[n], want[n]) for n in want)
+           and meshed["losses"] == plain["losses"] and meshed["grad_norms"] == plain["grad_norms"])
+    lerr = max(abs(a - b) / abs(b) for a, b in zip(meshed["losses"], plain["losses"]))
+    nerr = max(abs(a - b) / abs(b) for a, b in zip(meshed["grad_norms"], plain["grad_norms"]))
+    out.update({
+        "steps": len(batches), "batch": list(batches[0][0].shape),
+        "losses_mesh": meshed["losses"], "losses_plain": plain["losses"],
+        "grad_norms_mesh": meshed["grad_norms"], "grad_norms_plain": plain["grad_norms"],
+        "loss_max_rel_diff": lerr, "grad_norm_max_rel_diff": nerr,
+        "weights_max_abs_diff": werr, "bit_equal": bit, "weights_moved": moved,
+        "weights": sum(t.numel() for t in want.values()),
+        "step_ms_mesh": meshed["step_ms"], "step_ms_plain": plain["step_ms"],
+        "step_p50_ms_mesh": meshed["step_p50_ms"], "step_p50_ms_plain": plain["step_p50_ms"],
+        "deterministic": True,
+    })
+    if not (bit and moved > 0):
+        raise AssertionError(f"lm-mesh: the steps on the mesh and off it differ, or moved no "
+                             f"weight: "
+                             f"{ {k: v for k, v in out.items() if 'profile' not in k} }")
+    return out
+
+
+def lm_mesh_chatglm(torch, np, mesh) -> dict:
+    """chatglm3-6b at its widths and ``LM_TRAIN_LAYERS`` layers:
+    ``MESH_LM_STEPS`` AdamW steps of ``MESH_LM_BATCH`` on ``mesh`` against
+    the same steps off it, deterministic algorithms on in both."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenBatcher
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.train.loop import init_train_state
+    from repro_torch.train.optimizer import AdamW, make_schedule
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), num_layers=LM_TRAIN_LAYERS)
+    opt = AdamW(schedule=make_schedule("cosine", MESH_LM_LR, MESH_LM_STEPS))
+    state = init_train_state(init_lm(torch.Generator(device=DEVICE).manual_seed(6), cfg), opt)
+    data = TokenBatcher(cfg.vocab_size, *MESH_LM_BATCH, seed=0)
+    batches = [tuple(torch.from_numpy(a).to(DEVICE) for a in data.batch(i))
+               for i in range(MESH_LM_STEPS)]
+    out = {"arch": cfg.name, "layers": cfg.num_layers,
+           **mesh_vs_plain(torch, np, cfg, opt, state, batches, mesh)}
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_mesh_granite(torch, np, mesh) -> dict:
+    """granite-moe-3b-a800m at its widths and ``MOE_TRAIN_LAYERS`` layers:
+    one AdamW step with ``moe_impl="shardmap"`` on ``mesh`` against
+    ``moe_impl="gspmd"``, ``moe_groups=1`` off it (at one data shard the
+    same dispatch: one group)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenBatcher
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.train.loop import init_train_state
+    from repro_torch.train.optimizer import AdamW, make_schedule
+
+    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_TRAIN_LAYERS,
+                              moe_impl="gspmd", moe_groups=1)
+    opt = AdamW(schedule=make_schedule(cfg.schedule, LM_TRAIN_LR, 1))
+    state = init_train_state(init_lm(torch.Generator(device=DEVICE).manual_seed(10), cfg), opt)
+    data = TokenBatcher(cfg.vocab_size, *MOE_TRAIN_BATCH, seed=0)
+    batches = [tuple(torch.from_numpy(a).to(DEVICE) for a in data.batch(0))]
+    out = {"arch": cfg.name, "layers": cfg.num_layers,
+           **mesh_vs_plain(torch, np, cfg, opt, state, batches, mesh,
+                           cfg_mesh=dataclasses.replace(cfg, moe_impl="shardmap"),
+                           traced=False)}
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_mesh_pipeline(torch, np, mesh) -> dict:
+    """``pipelined_apply`` at the reference example's shape over ``mesh``'s
+    ``"stage"`` axis against the sequential product of every stage."""
+    from repro_torch.dist.pipeline_parallel import bubble_fraction, pipelined_apply
+
+    S = dict(zip(mesh.mesh_dim_names, mesh.shape))["stage"]
+    _, M, MB, D, L = MESH_PIPE
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+    w = torch.randn((S, L, D, D), device=DEVICE, generator=g) / D ** 0.5
+    x = torch.randn((M, MB, D), device=DEVICE, generator=g)
+
+    def body(w_stage, h):
+        for wl in w_stage:
+            h = torch.tanh(h @ wl)
+        return h
+
+    t0 = time.perf_counter()
+    out = pipelined_apply(w, x, body, mesh)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ref = x
+    for s in range(S):
+        ref = torch.stack([body(w[s], ref[m]) for m in range(M)])
+    err = float((out - ref).abs().max())
+    res = {"stages": S, "microbatches": M, "microbatch": MB, "d": D, "layers_a_stage": L,
+           "ticks": M + S - 1, "bubble": bubble_fraction(M, S), "max_abs_err": err,
+           "atol": MESH_PIPE_ATOL, "wall_s": wall, "device": str(out.device)}
+    if not (out.device.type == DEVICE and err <= MESH_PIPE_ATOL):
+        raise AssertionError(f"lm-mesh: the pipeline disagrees with the sequential product: {res}")
+    return res
+
+
+def lm_mesh_gloo_case(torch, np) -> dict:
+    """What every rank of the gloo world of ``MESH_WORLD`` ranks on the card
+    runs: the pipeline at ``MESH_PIPE``'s S stages.  (DTensor's collectives
+    do not run there: its first all-gather of a CUDA tensor over gloo
+    killed every rank with SIGSEGV on torch 2.11, PERF.md §7; the sharded
+    forward and the (2, 2) → (1, 2) restart are proved in the CPU gloo
+    worlds of ``tests/test_torch_sharded_lm.py``.)"""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    return lm_mesh_pipeline(torch, np, init_device_mesh(
+        DEVICE, (MESH_PIPE[0],), mesh_dim_names=("stage",)))
+
+
+def _lm_mesh_worker(rank, init_method, results) -> None:
+    """A worker rank of ``phase_lm_mesh``'s gloo world on the one card:
+    runs ``lm_mesh_gloo_case`` and reports its traceback, if any."""
+    import traceback
+
+    sys.path.insert(0, str(SRC))
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        dist.init_process_group("gloo", init_method=init_method, rank=rank,
+                                world_size=MESH_WORLD,
+                                timeout=timedelta(seconds=MESH_GLOO_TIMEOUT_S))
+        lm_mesh_gloo_case(torch, np)
+        results.put((rank, None))
+    except BaseException:
+        results.put((rank, traceback.format_exc()))
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def phase_lm_mesh(torch, np, smi) -> dict:
+    """The distribution layer (``dist.sharding``, ``launch.mesh``, the
+    mesh-sharded train step, the shard-local MoE, ``restore(shardings=)``,
+    the elastic restart, ``pipeline_parallel``); see the module docstring,
+    phase 13.  Launches none of the four kernels."""
+    import multiprocessing as mp
+    import queue as queue_mod
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.kernels.crossbar_reduce import crossbar_reduce_cuda
+    from repro_torch.kernels.decode_attention import fused_decode_attention_cuda
+    from repro_torch.kernels.embedding_bag import embedding_bag_cuda
+    from repro_torch.launch import elastic_restart
+    from repro_torch.launch.mesh import make_host_mesh
+
+    wrappers = (crossbar_reduce_cuda, embedding_bag_cuda, fused_decode_attention_cuda)
+    before = [w.launches for w in wrappers]
+    t0 = time.perf_counter()
+    stats = {}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        # ---- a world of 1 on NCCL: the (1, 1) mesh and one stage ----
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl1", rank=0,
+                                world_size=1)
+        try:
+            mesh = make_host_mesh()
+            stats["chatglm"] = lm_mesh_chatglm(torch, np, mesh)
+            log("lm-mesh chatglm", json.dumps({"card": smi, **stats["chatglm"]}))
+            stats["granite"] = lm_mesh_granite(torch, np, mesh)
+            log("lm-mesh granite", json.dumps({"card": smi, **stats["granite"]}))
+            with deterministic(torch):
+                stats["elastic"] = elastic_restart.main(device=DEVICE,
+                                                        ckpt_dir=f"{tmp}/elastic1")
+            log("lm-mesh elastic", json.dumps({"card": smi, **stats["elastic"]}))
+            stats["pipeline_s1"] = lm_mesh_pipeline(torch, np, init_device_mesh(
+                DEVICE, (1,), mesh_dim_names=("stage",)))
+            log("lm-mesh pipeline-s1", json.dumps(stats["pipeline_s1"]))
+        finally:
+            dist.destroy_process_group()
+        torch.cuda.empty_cache()
+
+        # ---- a world of MESH_WORLD gloo ranks on the one card ----
+        t1 = time.perf_counter()
+        init = f"file://{tmp}/gloo{MESH_WORLD}"
+        ctx = mp.get_context("spawn")
+        results = ctx.Queue()
+        workers = [ctx.Process(target=_lm_mesh_worker, args=(r, init, results), daemon=True)
+                   for r in range(1, MESH_WORLD)]
+        for w in workers:
+            w.start()
+        try:
+            dist.init_process_group("gloo", init_method=init, rank=0, world_size=MESH_WORLD,
+                                    timeout=timedelta(seconds=MESH_GLOO_TIMEOUT_S))
+            try:
+                stats["gloo4"] = {"pipeline": lm_mesh_gloo_case(torch, np)}
+            finally:
+                dist.destroy_process_group()
+            errors = []
+            for _ in workers:
+                try:
+                    rank, err = results.get(timeout=120)
+                except queue_mod.Empty:
+                    errors.append("a worker reported nothing")
+                    break
+                if err is not None:
+                    errors.append(f"rank {rank}: {err}")
+            for w in workers:
+                w.join(timeout=60)
+        finally:
+            for w in workers:
+                if w.is_alive():
+                    w.kill()
+                    w.join()
+        if errors or any(w.exitcode != 0 for w in workers):
+            raise AssertionError(f"lm-mesh: gloo world: {errors}, exit codes "
+                                 f"{[w.exitcode for w in workers]}")
+        stats["gloo4"]["seconds"] = time.perf_counter() - t1
+        log("lm-mesh gloo4", json.dumps({"card": smi, "world": MESH_WORLD, "backend": "gloo",
+                                         **stats["gloo4"]}))
+    stats["kernel_launches"] = sum(w.launches - n for w, n in zip(wrappers, before))
+    stats["seconds"] = time.perf_counter() - t0
+    log("lm-mesh", json.dumps({"card": smi, "kernel_launches": stats["kernel_launches"],
+                               "seconds": stats["seconds"]}))
+    if stats["kernel_launches"]:
+        raise AssertionError("lm-mesh: the mesh path launched a kernel of the attention or "
+                             "embedding paths")
+    return stats
+
+
 def phase_quickstart(torch) -> dict:
     """``repro_torch.launch.quickstart.main`` on the card: the flat
     crossbar kernel over 32 queries, which ``main`` holds against the
@@ -3876,6 +4218,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_lm_recurrent(torch, np, smi)
     mark("lm-recurrent")
+    torch.cuda.empty_cache()
+    phase_lm_mesh(torch, np, smi)
+    mark("lm-mesh")
 
     crossbar_src = "src/repro_torch/kernels/csrc/crossbar_reduce.cu"
     kernels = [

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.crossbar_reduce import crossbar_reduce_cuda
 from repro_torch.kernels.embedding_bag import embedding_bag_cuda
 
@@ -114,3 +115,9 @@ def embedding_bag(table, indices):
       (batch, dim) bag sums, table dtype; differentiable in table.
     """
     return _EmbeddingBag.apply(table, indices)
+
+
+# Re-export oracles so tests and docs have one import point.
+crossbar_reduce_ref = _ref.crossbar_reduce_ref
+crossbar_reduce_blocked_ref = _ref.crossbar_reduce_blocked_ref
+embedding_bag_ref = _ref.embedding_bag_ref

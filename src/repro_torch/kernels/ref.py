@@ -105,6 +105,12 @@ def embedding_bag_ref(
     return _embedding_bag_partial(table, indices).to(table.dtype)
 
 
+def onehot_matmul_ref(onehot: torch.Tensor, dense: torch.Tensor) -> torch.Tensor:
+    """Oracle for the one-hot matmul micro-kernel: the product in float32,
+    cast to ``dense``'s dtype."""
+    return (onehot.float() @ dense.float()).to(dense.dtype)
+
+
 def _embedding_bag_partial(table, indices) -> torch.Tensor:
     """The f32 ``(batch, dim)`` sum over the given positions."""
     rows = table.shape[0]

@@ -24,21 +24,43 @@ k_chunk)`` blocks and recomputes each block in backward.
 encoder's (image) embeddings with the same float32 scores and softmax,
 in query chunks of 512 when the sequence is a longer multiple of 512,
 scaled by ``tanh(gate)`` (zero at init).
+
+Inside an ``activation_sharding_ctx`` (:mod:`repro_torch.dist.sharding`)
+``self_attention`` lays its float32 scores out by ``_SCORE_SHARDINGS``, as
+the reference does, and the GQA einsums run on each rank's own shard of
+that layout (``local_map``; DTensor cannot shard their views over the
+heads): its batch slice, and its kv heads or its slice of every kv
+head's q-groups, so the scores are made where they are laid out and
+never gathered.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.dist.sharding import (
+    _current, logical_to_spec, maybe_shard_any, place, replicate_like, sanitize_spec, shard_index,
+    to_placements,
+)
 from repro_torch.kernels import decode_attention as kda
 from repro_torch.models.layers import Params, dense_init
 from repro_torch.models.rope import apply_rope
 
 _KERNEL_BLOCK_S = 512  # the TPU kernel's default S tile, checked by the wrapper
+
+# candidate shardings for the (b, kv_heads, g, s_q, s_k) score tensor:
+# prefer head parallelism (kv heads, then q-groups).  When neither head
+# count divides TP the scores stay batch-sharded — long sequences avoid
+# the quadratic buffer entirely via chunked_self_attention instead.
+_SCORE_SHARDINGS = (
+    ("batch", "kv_heads", None, None, None),
+    ("batch", None, "qgroups", None, None),
+)
 
 
 def init_attention(generator: torch.Generator, d_model, num_heads, kv_heads, head_dim,
@@ -65,25 +87,122 @@ def _project(p, x, num_heads, kv_heads, head_dim):
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     return (
-        q.reshape(b, s, num_heads, head_dim),
-        k.reshape(b, s, kv_heads, head_dim),
-        v.reshape(b, s, kv_heads, head_dim),
+        _split_heads(q, num_heads, head_dim),
+        _split_heads(k, kv_heads, head_dim),
+        _split_heads(v, kv_heads, head_dim),
     )
 
 
+def _split_heads(t, heads: int, head_dim: int):
+    """``(b, s, heads·head_dim)`` → ``(b, s, heads, head_dim)``.  In an
+    activation context a split of the last dim that the head count does
+    not divide (2 kv heads over 4 TP ranks) is gathered first: DTensor
+    cannot view it as whole heads."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    b, s, _ = t.shape
+    _, mesh = _current()
+    if mesh is not None and hasattr(t, "placements"):
+        dims = [i for i, p in enumerate(t.placements) if p == Shard(2)]
+        if heads % math.prod(mesh.size(i) for i in dims):
+            t = place(t, mesh, [Replicate() if i in dims else p
+                                for i, p in enumerate(t.placements)])
+    return t.reshape(b, s, heads, head_dim)
+
+
+def _score_layout(b: int, kvh: int, g: int):
+    """``(mesh, placements)`` of the ``(b, kvh, g, s, t)`` scores in the
+    activation context: the first of ``_SCORE_SHARDINGS`` that survives
+    sanitization intact (as ``maybe_shard_any`` picks it), else the batch
+    alone; ``(None, None)`` outside a context."""
+    rules, mesh = _current()
+    if mesh is None:
+        return None, None
+    for axes in _SCORE_SHARDINGS:
+        spec = logical_to_spec(axes, rules)
+        if sanitize_spec(spec, (b, kvh, g, 1, 1), mesh) == spec:
+            return mesh, to_placements(spec, mesh)
+    spec = logical_to_spec(("batch", None, None, None, None), rules)
+    return mesh, to_placements(sanitize_spec(spec, (b, kvh, g, 1, 1), mesh), mesh)
+
+
+def _operand_layout(sp, head_dim: int):
+    """Placements of q, k or v (heads on ``head_dim``) for scores laid out
+    by ``sp``, and of their gradients: the batch and the kv-head splits
+    kept, replicated where the ranks split the q-groups, whose gradients
+    are then partial sums."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    pl = tuple(Shard(0) if p == Shard(0) else Shard(head_dim) if p == Shard(1) else Replicate()
+               for p in sp)
+    grad = tuple(Partial() if s == Shard(2) else p for p, s in zip(pl, sp))
+    return pl, grad
+
+
+def _groups(mesh, sp, g: int):
+    """This rank's ``[lo, hi)`` of the q-groups under ``sp``."""
+    from torch.distributed.tensor import Shard
+
+    index, count = shard_index(mesh, [i for i, p in enumerate(sp) if p == Shard(2)])
+    return index * g // count, (index + 1) * g // count
+
+
 def _gqa_scores(q, k):
-    """q: (b,s,H,d), k: (b,t,Hkv,d) → scores (b, Hkv, q_per_kv, s, t)."""
+    """q: (b,s,H,d), k: (b,t,Hkv,d) → scores (b, Hkv, q_per_kv, s, t).  In
+    an activation context each rank computes its shard of the scores'
+    layout (``_score_layout``) from its shards of q and k."""
+    from torch.distributed.tensor.experimental import local_map
+
+    b, _, H, _ = q.shape
+    kvh = k.shape[2]
+    mesh, sp = _score_layout(b, kvh, H // kvh)
+    if mesh is None:
+        return _gqa_scores_local(q, k)
+    pl, grad = _operand_layout(sp, 2)
+    fn = functools.partial(_gqa_scores_local, groups=_groups(mesh, sp, H // kvh))
+    return local_map(fn, out_placements=sp, in_placements=(pl, pl),
+                     in_grad_placements=(grad, grad))(place(q, mesh, pl), place(k, mesh, pl))
+
+
+def _gqa_scores_local(q, k, groups=None):
     b, s, H, d = q.shape
     kvh = k.shape[2]
     qg = q.reshape(b, s, kvh, H // kvh, d)
+    if groups is not None:
+        qg = qg[:, :, :, groups[0]:groups[1]]
     return torch.einsum("bskgd,btkd->bkgst", qg, k)
 
 
 def _gqa_out(attn, v):
-    """attn: (b,Hkv,g,s,t), v: (b,t,Hkv,d) → (b,s,H*d)."""
+    """attn: (b,Hkv,g,s,t), v: (b,t,Hkv,d) → (b,s,H*d); in an activation
+    context on each rank's shards, as ``_gqa_scores``, and gathered over
+    the q-groups where the ranks split them."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    b, kvh, g, s, _ = attn.shape
+    mesh, sp = _score_layout(b, kvh, g)
+    if mesh is None:
+        return _gqa_out_local(attn, v)
+    pl, grad = _operand_layout(sp, 2)
+    split_groups = Shard(2) in sp
+    # (b, s, H*d) with the kv heads outermost, so a kv-head split is a
+    # split of its last dim; a q-group split is gathered from (b, s, kvh, g, d)
+    out_pl = [Shard(0) if p == Shard(0) else Shard(2) if p == Shard(1)
+              else Shard(3) if p == Shard(2) else Replicate() for p in sp]
+    out = local_map(functools.partial(_gqa_out_local, flat=not split_groups),
+                    out_placements=out_pl, in_placements=(sp, pl),
+                    in_grad_placements=(sp, grad))(place(attn, mesh, sp), place(v, mesh, pl))
+    if not split_groups:
+        return out
+    out = place(out, mesh, [Replicate() if p == Shard(3) else p for p in out_pl])
+    return out.reshape(b, s, -1)
+
+
+def _gqa_out_local(attn, v, flat=True):
     b, kvh, g, s, t = attn.shape
     out = torch.einsum("bkgst,btkd->bskgd", attn, v)
-    return out.reshape(b, s, kvh * g * v.shape[-1])
+    return out.reshape(b, s, kvh * g * v.shape[-1]) if flat else out
 
 
 def _causal_mask(qpos, kpos, window: int):
@@ -111,11 +230,11 @@ def self_attention(
     b, s, _ = x.shape
     q, k, v = _project(p, x, num_heads, kv_heads, head_dim)
     if positions is None:
-        positions = torch.arange(s, device=x.device)[None, :]
+        positions = replicate_like(torch.arange(s, device=x.device)[None, :], x)
     q = apply_rope(q, positions, theta=rope_theta, partial=rope_partial)
     k = apply_rope(k, positions, theta=rope_theta, partial=rope_partial)
 
-    scores = _gqa_scores(q, k).float() / math.sqrt(head_dim)
+    scores = maybe_shard_any(_gqa_scores(q, k).float() / math.sqrt(head_dim), _SCORE_SHARDINGS)
     if causal:
         mask = _causal_mask(positions[:, None, None, :, None],
                             positions[:, None, None, None, :], window)
@@ -168,7 +287,7 @@ def chunked_self_attention(
                          f"and k_chunk {k_chunk}")
     q, k, v = _project(p, x, num_heads, kv_heads, head_dim)
     if positions is None:
-        positions = torch.arange(s, device=x.device)[None, :]
+        positions = replicate_like(torch.arange(s, device=x.device)[None, :], x)
     q = apply_rope(q, positions, theta=rope_theta, partial=rope_partial)
     k = apply_rope(k, positions, theta=rope_theta, partial=rope_partial)
     scale = 1.0 / math.sqrt(head_dim)

@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.dist.sharding import replicate_like
+
 
 def rope_frequencies(head_dim: int, theta: float, rot_dim: int | None = None,
                      device="cpu") -> torch.Tensor:
@@ -26,7 +28,7 @@ def apply_rope(
 ) -> torch.Tensor:
     head_dim = x.shape[-1]
     rot_dim = head_dim // 2 if partial else head_dim
-    inv = rope_frequencies(head_dim, theta, rot_dim, device=x.device)
+    inv = replicate_like(rope_frequencies(head_dim, theta, rot_dim, device=x.device), x)
     ang = positions[..., None].float() * inv          # (..., seq, rot/2)
     cos = torch.cos(ang)[..., None, :]                # broadcast over heads
     sin = torch.sin(ang)[..., None, :]

@@ -37,6 +37,13 @@ each mLSTM block when there is no sLSTM) in ``torch.utils.checkpoint``
 where JAX wraps it in ``jax.checkpoint``.  One-token decode is
 ``repro_torch.serve.decode``.
 
+Inside an ``activation_sharding_ctx`` (:mod:`repro_torch.dist.sharding`)
+the activations are laid out as the reference constrains them (after the
+embedding, twice in each dense/moe/audio block, on the logits), with
+parameters and batch as DTensors; outside one every constraint returns
+its argument and the forward is the one-device forward, bit for bit.  On
+a mesh the embedding is a vocab-parallel lookup (``_embed``).
+
 One deliberate difference: at ``slstm_every = 0`` JAX's ``init_lm``
 raises (``stack_layers`` of the empty sLSTM list); the port leaves the
 ``"slstm"`` key out, the tree the reference's forward and decode read in
@@ -53,6 +60,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import _current, maybe_shard, place, replicate_like, shard_index
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2, xlstm
 from repro_torch.models.layers import (
@@ -233,7 +241,7 @@ def _block_fwd(p: Params, x, cfg: ModelConfig, positions):
         head_dim=cfg.resolved_head_dim, positions=positions,
         rope_theta=cfg.rope_theta, rope_partial=cfg.rope_2d,
     )
-    x = x + h
+    x = maybe_shard(x + h, ("batch", "seq", "embed"))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.moe:
         xn = apply_norm(p["norm_mlp"], x, cfg.norm)
@@ -244,7 +252,7 @@ def _block_fwd(p: Params, x, cfg: ModelConfig, positions):
         x = x + y
     elif cfg.d_ff:
         x = x + apply_mlp(p["mlp"], apply_norm(p["norm_mlp"], x, cfg.norm), cfg.act)
-    return x, aux
+    return maybe_shard(x, ("batch", "seq", "embed")), aux
 
 
 def _scan_blocks(stacked: Params, x, cfg: ModelConfig, positions, *, remat=False):
@@ -272,6 +280,40 @@ def _superblock_fwd(self_p: Params, cross_p: Params, x, enc, cfg: ModelConfig, p
     return cross_block_fwd(cross_p, x, enc, cfg), aux
 
 
+def _embed(table, tokens):
+    """``table[tokens]``.  In an activation context it is a vocab-parallel
+    lookup (``local_map``): where the table's vocab is split, each rank
+    looks its tokens up in its own rows, zeros for the others, and the
+    sum over the vocab shards is left partial for the next constraint to
+    reduce, so the table itself is gathered only over its FSDP dim."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    _, mesh = _current()
+    if mesh is None:
+        return table[tokens.long()]
+    rep = [Replicate()] * mesh.ndim
+    table, tokens = (x if isinstance(x, DTensor) else place(x, mesh, rep) for x in (table, tokens))
+    vocab = [i for i, p in enumerate(table.placements) if p == Shard(0)]
+    batch = [i not in vocab and p == Shard(0) for i, p in enumerate(tokens.placements)]
+    t_pl = [Shard(0) if i in vocab else Replicate() for i in range(mesh.ndim)]
+    i_pl = [Shard(0) if b else Replicate() for b in batch]
+    t_grad = [Shard(0) if i in vocab else Partial() if batch[i] else Replicate()
+              for i in range(mesh.ndim)]
+    out_pl = [Partial() if i in vocab else Shard(0) if batch[i] else Replicate()
+              for i in range(mesh.ndim)]
+    index, count = shard_index(mesh, vocab)
+    lo = index * (table.shape[0] // count)
+
+    def lookup(t, ids):
+        ids = ids.long() - lo
+        hit = (ids >= 0) & (ids < t.shape[0])
+        return torch.where(hit[..., None], t[ids.clamp(0, t.shape[0] - 1)], 0)
+
+    return local_map(lookup, out_placements=out_pl, in_placements=(t_pl, i_pl),
+                     in_grad_placements=(t_grad, i_pl), redistribute_inputs=True)(table, tokens)
+
+
 def forward(
     params: Params,
     cfg: ModelConfig,
@@ -286,11 +328,12 @@ def forward(
     load-balancing losses (zero without experts).  The vlm family needs
     ``enc``; the others ignore it, as in the reference."""
     if cfg.family == "audio":
-        x = sum(params[f"embed_{c}"][tokens[:, c].long()] for c in range(cfg.num_codebooks))
+        x = sum(_embed(params[f"embed_{c}"], tokens[:, c]) for c in range(cfg.num_codebooks))
     else:
-        x = params["embed"][tokens.long()]
+        x = _embed(params["embed"], tokens)
+    x = maybe_shard(x, ("batch", "seq", "embed"))
     s = tokens.shape[-1]
-    positions = torch.arange(s, device=x.device)[None, :]
+    positions = replicate_like(torch.arange(s, device=x.device)[None, :], x)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
     if cfg.family in ("dense", "moe", "audio"):
@@ -317,7 +360,7 @@ def forward(
         return torch.stack([x @ params[f"head_{c}"] for c in range(cfg.num_codebooks)],
                            dim=1), aux
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return x @ head, aux
+    return maybe_shard(x @ head, ("batch", "seq", "vocab")), aux
 
 
 MLSTM_CHUNK_THRESHOLD = 256  # seqs >= this use the chunkwise-parallel mLSTM
@@ -412,7 +455,8 @@ def lm_loss(
     logits, aux = forward(params, cfg, tokens, enc=enc, remat=remat)
     logits = logits.float()
     if cfg.padded_vocab != cfg.vocab_size:
-        pad_mask = torch.arange(cfg.padded_vocab, device=logits.device) >= cfg.vocab_size
+        pad_mask = replicate_like(
+            torch.arange(cfg.padded_vocab, device=logits.device) >= cfg.vocab_size, logits)
         logits = torch.where(pad_mask, -1e30, logits)
     logp = F.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, labels.long()[..., None]).mean()

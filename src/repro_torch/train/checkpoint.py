@@ -33,6 +33,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.dist.sharding import place
 from repro_torch.models.layers import tree_map
 from repro_torch.train.tree import flatten_with_names, map_with_names
 
@@ -128,13 +129,20 @@ def _tensor(arr: np.ndarray, dtype: str) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def restore(ckpt_dir: str, step: int, like: Any, *, device=None) -> Any:
+def restore(ckpt_dir: str, step: int, like: Any, *, device=None, shardings: Any = None) -> Any:
     """Restores into the structure of ``like``, every leaf on ``device``
     (default: the device of ``like``'s leaf, or the CPU).
 
     Only ``like``'s structure, names and shapes are used: a leaf missing
     from the checkpoint raises ``KeyError``, a shape that differs
     ``ValueError``.  Leaves keep the dtype they were stored with.
+
+    ``shardings`` re-shards on load: a tree with the structure of
+    ``like`` whose leaves are ``(mesh, placements)`` pairs or ``None``.  A
+    leaf with a pair becomes a DTensor on that mesh (on its device type),
+    laid out from the stored array, which every rank reads from the same
+    files, so no data moves between ranks; a leaf with ``None`` goes to
+    ``device`` as above.
     """
     step_dir = os.path.join(ckpt_dir, f"step_{step:09d}")
     with open(os.path.join(step_dir, "manifest.json")) as f:
@@ -148,13 +156,28 @@ def restore(ckpt_dir: str, step: int, like: Any, *, device=None) -> Any:
                 for k in z.files:
                     stored[k] = _tensor(z[k], dtype_of.get(k, ""))
 
-    def place(name, leaf):
+    # each leaf's (mesh, placements) pair by name; held in a closure, so
+    # the walk does not descend into the pair
+    layout_of = {} if shardings is None else dict(
+        flatten_with_names(tree_map(lambda _, s: (lambda: s), like, shardings)))
+
+    def put(name, leaf):
         if name not in stored:
             raise KeyError(f"checkpoint missing leaf {name!r}")
         t = stored[name]
         if tuple(t.shape) != tuple(leaf.shape):
             raise ValueError(f"{name}: checkpoint shape {tuple(t.shape)} != {tuple(leaf.shape)}")
+        layout = layout_of[name]() if name in layout_of else None
+        if layout is not None:
+            mesh, placements = layout
+            return place(t.to(_mesh_device(mesh)), mesh, placements)
         dev = device if device is not None else getattr(leaf, "device", "cpu")
         return t.to(dev)
 
-    return map_with_names(place, like)
+    return map_with_names(put, like)
+
+
+def _mesh_device(mesh) -> torch.device:
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)

@@ -10,6 +10,14 @@ reported ``grad_norm`` is the norm of the unclipped gradients; the clip
 happens inside ``optimizer.update``.  With ``has_enc`` (the vlm family)
 the batch's ``enc`` image embeddings go to the loss, split along the
 batch with the tokens.
+
+On a device mesh the parameters and the optimizer state are DTensors
+(made off the mesh and laid out by ``dist.sharding``'s specs, as the
+reference's elastic example lays out its state) and the batch is laid
+out by ``launch.dryrun.batch_specs``; the step runs inside an
+``activation_sharding_ctx``.  The gradients keep the parameters'
+placements, and ``loss`` and ``grad_norm`` come back as replicated 0-d
+DTensors.  A state that lives on a mesh is the switch; there is no flag.
 """
 
 from __future__ import annotations
@@ -19,6 +27,7 @@ from typing import Any, Callable, NamedTuple, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import placed_like, replicated
 from repro_torch.models.layers import tree_leaves, tree_map
 from repro_torch.models.transformer import lm_loss
 from repro_torch.train.tree import global_norm
@@ -45,7 +54,7 @@ def _value_and_grad(cfg: ModelConfig, params, tokens, labels, enc, remat: bool):
     with torch.enable_grad():
         loss = lm_loss(live, cfg, tokens, labels, enc=enc, remat=remat)
     grads = iter(torch.autograd.grad(loss, tree_leaves(live)))
-    return loss.detach(), tree_map(lambda _: next(grads), params)
+    return replicated(loss.detach()), tree_map(lambda p: placed_like(next(grads), p), params)
 
 def make_train_step(
     cfg: ModelConfig,
@@ -80,8 +89,7 @@ def make_train_step(
             tk, lb = split(tokens), split(labels)
             ec = split(enc) if enc is not None else [None] * microbatches
             loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
-            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=accum_dtype, device=p.device),
-                             state.params)
+            grads = tree_map(lambda p: torch.zeros_like(p, dtype=accum_dtype), state.params)
             for i in range(microbatches):
                 l, g = _value_and_grad(cfg, state.params, tk[i], lb[i], ec[i], remat)
                 loss = loss + l / microbatches

@@ -17,6 +17,7 @@ from typing import Any, Callable, List, Tuple
 
 import torch
 
+from repro_torch.dist.sharding import replicated
 from repro_torch.models.layers import tree_map
 
 
@@ -60,8 +61,10 @@ def jax_leaves(tree: Any) -> list:
 
 
 def global_norm(tree: Any) -> torch.Tensor:
-    """``sqrt(Σ Σ g²)`` in float32, the leaves summed in JAX's order."""
-    return torch.sqrt(sum(g.float().square().sum() for g in jax_leaves(tree)))
+    """``sqrt(Σ Σ g²)`` in float32, the leaves summed in JAX's order.  Over
+    DTensor leaves the sums reduce over the whole mesh and the norm is a
+    replicated 0-d DTensor."""
+    return replicated(torch.sqrt(sum(g.float().square().sum() for g in jax_leaves(tree))))
 
 
 def map_n(fn: Callable, n: int, tree: Any, *rest) -> tuple:

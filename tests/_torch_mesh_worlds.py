@@ -315,30 +315,41 @@ def _rank_main(rank, size, init_method, cases, results, timeout_s):
     torch.set_num_threads(1)
     mesh = init_shard_mesh(rank=rank, world_size=size, device="cpu",
                            init_method=init_method, timeout_s=timeout_s)
+    run_cases(mesh, cases, CASES, results, rank)
+    mesh.close()
+
+
+def run_cases(target, cases, table, results, rank) -> None:
+    """Runs ``cases`` in order with ``table[kind](target, **kwargs)``;
+    after a case raises, the rest report as not run.  Rank 0 puts
+    ``{name: (status, value)}`` on ``results``."""
     out, failed = {}, False
     for name, kind, kwargs in cases:
         if failed:
             out[name] = ("error", NOT_RUN)
             continue
         try:
-            out[name] = ("ok", CASES[kind](mesh, **kwargs))
+            out[name] = ("ok", table[kind](target, **kwargs))
         except Exception:  # reported to the test, which fails on it
             out[name] = ("error", traceback.format_exc())
             failed = True
     if rank == 0:
         results.put(out)
-    mesh.close()
 
 
-def run_world(size, cases, tmpdir, *, timeout_s=30.0, wait_s=120.0):
+def run_world(size, cases, tmpdir, *, timeout_s=30.0, wait_s=120.0, rank_main=None):
     """Runs ``cases`` (``[(name, kind, kwargs), ...]``) on a world of
     ``size`` gloo ranks; returns rank 0's ``{name: (status, value)}``.
-    Every process is ended before this returns."""
+    ``rank_main`` (a module-level function taking ``(rank, size,
+    init_method, cases, results, timeout_s)``) starts each rank; by
+    default a shard mesh running this module's cases.  Every process is
+    ended before this returns."""
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     os.makedirs(str(tmpdir), exist_ok=True)
     init = f"file://{os.path.join(str(tmpdir), 'store')}"
-    procs = [ctx.Process(target=_rank_main, args=(r, size, init, cases, results, timeout_s),
+    procs = [ctx.Process(target=rank_main or _rank_main,
+                         args=(r, size, init, cases, results, timeout_s),
                          daemon=True) for r in range(size)]
     for p in procs:
         p.start()

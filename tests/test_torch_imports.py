@@ -62,7 +62,10 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
                 "repro_torch.configs.llama_3_2_vision_11b",
                 "repro_torch.configs.musicgen_medium", "repro_torch.models.xlstm",
                 "repro_torch.models.mamba2", "repro_torch.configs.xlstm_125m",
-                "repro_torch.configs.zamba2_7b"):
+                "repro_torch.configs.zamba2_7b", "repro_torch.dist.sharding",
+                "repro_torch.dist.pipeline_parallel", "repro_torch.launch.mesh",
+                "repro_torch.launch.dryrun", "repro_torch.launch.elastic_restart",
+                "repro_torch.launch.mesh_comms"):
         assert mod in res["modules"]
 
 
@@ -84,3 +87,14 @@ def test_no_source_names_jax_or_repro_imports():
         if jax_import.search(text) or repro_import.search(text):
             offenders.append(os.path.relpath(path, ROOT))
     assert offenders == []
+
+
+def test_ops_reexports_the_reference_oracles():
+    """``kernels.ops`` re-exports the plain versions the reference's
+    ``ops`` re-exports (``src/repro/kernels/ops.py:136-138``)."""
+    from repro.kernels import ops as jops
+    from repro_torch.kernels import ops, ref
+
+    for name in ("crossbar_reduce_ref", "crossbar_reduce_blocked_ref", "embedding_bag_ref"):
+        assert hasattr(jops, name)
+        assert getattr(ops, name) is getattr(ref, name)

@@ -146,3 +146,20 @@ def test_contract_errors(bad):
         bm = bm[:, :3]
     with pytest.raises(ValueError):
         crossbar_reduce_cuda(image, ids, bm)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_onehot_matmul_ref_matches_jax(dtype):
+    """``ref.onehot_matmul_ref`` against ``repro.kernels.ref``'s on the same
+    one-hot rows and dense table: float32 products, cast to the table's
+    dtype (bit for bit: one term a row)."""
+    from repro_torch.kernels.ref import onehot_matmul_ref
+
+    rng = np.random.default_rng(11)
+    onehot = np.eye(64, dtype=np.float32)[rng.integers(0, 64, size=48)]
+    dense = rng.standard_normal((64, 128)).astype(np.float32)
+    want = jref.onehot_matmul_ref(jnp.asarray(onehot), jnp.asarray(dense).astype(dtype))
+    got = onehot_matmul_ref(torch.from_numpy(onehot),
+                            torch.from_numpy(dense).to(getattr(torch, dtype)))
+    assert got.dtype == getattr(torch, dtype)
+    np.testing.assert_array_equal(got.float().numpy(), np.asarray(want.astype(jnp.float32)))
