@@ -12,7 +12,8 @@ moe, vlm and audio families (``granite-moe-3b-a800m`` FULL served through
 the kernel), the recurrent ssm and hybrid families (``xlstm-125m`` and
 ``zamba2-7b`` FULL served, which launch none of the kernels), and the
 distribution layer (the LM trained on a device mesh, the elastic
-restart, GPipe pipelines; no kernel either) — and holds
+restart, GPipe pipelines; no kernel either), the multi-pod dry run and
+the H100 roofline — and holds
 every CUDA kernel of those paths against its plain PyTorch version on the
 card.
 Phases, in order; any failure propagates and the process exits non-zero:
@@ -184,10 +185,13 @@ Phases, in order; any failure propagates and the process exits non-zero:
    must have moved weights; step p50 and one traced step's host operators
    on and off the mesh; ``granite-moe-3b-a800m`` at 8 of 32 layers, one
    AdamW step with ``moe_impl="shardmap"`` on the mesh against
-   ``"gspmd"``, ``moe_groups=1`` off it, held the same way;
-   ``launch.elastic_restart.main`` (mesh A = mesh B = (1, 1), deterministic,
-   its checkpoint under ``build/``, deleted after); ``pipelined_apply`` at
-   one stage.  Then 4 gloo ranks on the one card (this process rank 0,
+   ``"gspmd"``, ``moe_groups=1`` off it, held the same way; the chatglm
+   cut again, one step of 2 x 4,096 tokens (``chunked_self_attention`` on
+   the scores' shards), and the ``xlstm-125m`` and ``zamba2-7b`` smoke
+   configs (float32, 4 x 16; the scans on each rank's batch slice), one
+   step each, held the same way; ``launch.elastic_restart.main`` (mesh A =
+   mesh B = (1, 1), deterministic, its checkpoint under ``build/``, deleted
+   after); ``pipelined_apply`` at one stage.  Then 4 gloo ranks on the one card (this process rank 0,
    three spawned): ``pipelined_apply`` at the reference example's S 4 x M 8
    x microbatch 16 x D 64 x 3 layers a stage, against the sequential
    product within 1e-6 (f32, TF32 off).  DTensor's collectives are not run
@@ -195,7 +199,19 @@ Phases, in order; any failure propagates and the process exits non-zero:
    every rank, PERF.md §7); the sharded forward and restart on (2, 2) are
    proved in the CPU gloo worlds of the tests.  Each process group is
    destroyed before the next is made.  The phase launches none of the
-   four kernels, and fails if it does.
+   four kernels, and fails if it does;
+14. dryrun: ``python -m repro_torch.launch.dryrun`` in a subprocess (ended
+   at ``DRYRUN_TIMEOUT_S``) for ``chatglm3-6b`` ``decode_32k`` and
+   ``dlrm-recross`` ``train_rec`` on ``pod16x16`` (a fake world of 256
+   ranks, meta tensors: the card's torch runs the dry run; nothing runs
+   on the card), each record printed, then ``python -m
+   repro_torch.launch.report``'s roofline table; a non-zero exit fails;
+15. roofline: ``RooflineReport`` with ``DEFAULT_H100`` at one chip for the
+   measured lm-train step (``train_cost(remat=False)``) and the served
+   decode step (``decode_cost`` with an int8 cache): each term, the
+   dominant one, the measured p50 over ``bound_time_s``; and the smoke's
+   own ``train_flop`` beside ``train_cost``'s FLOPs for every trained
+   config.
 
 The kernels are built in parallel (one ``nvcc`` per source).  It then
 prints the host seconds of each phase, one ``{"kernels": [...]}`` line,
@@ -223,11 +239,16 @@ from unittest import mock
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
+sys.path.insert(0, str(SRC))
 
-H100_BYTES_PER_S = 3.35e12            # HBM3, H100 SXM data sheet
-PEAK_FLOPS = {"float32": 67e12,        # CUDA cores, no tensor cores
-              "bfloat16": 989e12,      # dense tensor-core rate
-              "float16": 989e12}
+# the card's constants have one source: the port's H100 cost model (outside
+# a checkout of the repository this import fails and the smoke exits non-zero)
+from repro_torch.core.energy import DEFAULT_H100  # noqa: E402
+
+H100_BYTES_PER_S = DEFAULT_H100.hbm_bandwidth
+PEAK_FLOPS = {"float32": DEFAULT_H100.peak_flops_f32,   # CUDA cores, no tensor cores
+              "bfloat16": DEFAULT_H100.peak_flops,      # dense tensor-core rate
+              "float16": DEFAULT_H100.peak_flops}
 # max abs error of a crossbar output against its plain version: f32 sums
 # in another order; one rounding of a 16-bit output (an ulp is at most
 # 0.125 below 256 in size, in bf16 below 32)
@@ -345,10 +366,15 @@ MESH_LM_STEPS = 3                       # AdamW steps of chatglm3-6b at LM_TRAIN
 MESH_LM_BATCH = (8, 512)
 MESH_LM_LR = 3e-4
 # S, M, microbatch, D, layers a stage: examples/pipeline_parallel.py:19
+MESH_REC_BATCH = (4, 16)                # the recurrent smoke configs' step on (1, 1)
 MESH_PIPE = (4, 8, 16, 64, 3)
 MESH_PIPE_ATOL = 1e-6                   # float32, TF32 off
 MESH_WORLD = 4                          # gloo ranks on the one card
 MESH_GLOO_TIMEOUT_S = 120.0             # a rank that never joins or answers fails the phase
+# dryrun: cells of python -m repro_torch.launch.dryrun on the 256-rank fake
+# world (arch, shape; None: the DLRM cell), each subprocess's time limit
+DRYRUN_CELLS = (("chatglm3-6b", "decode_32k"), ("dlrm-recross", None))
+DRYRUN_TIMEOUT_S = 120.0
 
 
 def log(*parts) -> None:
@@ -491,15 +517,44 @@ def validated(counts: dict):
             os.environ["RECROSS_VALIDATE"] = prev
 
 
+def crossbar_as_embedding_bag(torch, image, tile_ids, bitmaps):
+    """The one PyTorch call that computes a crossbar reduction:
+    ``F.embedding_bag(mode="sum", per_sample_weights=bitmaps)`` over the
+    flattened ``(tiles·rows, d)`` image, one bag a (block, lane) of every
+    slot's ``tile_id·tile_rows + r`` (padding slots read row 0 at weight
+    0).  Returns the call (its indices and weights made here, outside any
+    timed window) and its first result."""
+    import torch.nn.functional as F
+
+    T, R, D = image.shape
+    flat = image.reshape(T * R, D)
+    ids = tile_ids.long().clamp_min(0)
+    rows = ids[..., None] * R + torch.arange(R, device=image.device)      # (nb, S, R)
+    w = bitmaps * (tile_ids >= 0).to(bitmaps.dtype)[(...,) + (None,) * (bitmaps.ndim - 2)]
+    if bitmaps.ndim == 4:                                                 # (nb, S, q, R)
+        nb, S, q, _ = bitmaps.shape
+        idx = rows[:, None].expand(nb, q, S, R).reshape(nb * q, S * R).contiguous()
+        w = w.permute(0, 2, 1, 3).reshape(nb * q, S * R).contiguous()
+    else:
+        idx, w = rows.reshape(rows.shape[0], -1), w.reshape(w.shape[0], -1).contiguous()
+
+    def call():
+        return F.embedding_bag(idx, flat, mode="sum", per_sample_weights=w)
+
+    return call, call()
+
+
 def parity(torch, timer, name, image, tile_ids, bitmaps, *, dynamic_switch=True,
-           timed=True, n_split=None, exact=False) -> dict:
+           timed=True, n_split=None, exact=False, library=False) -> dict:
     """Kernel vs plain version on the card; raises past the tolerance.
 
     A forced ``n_split`` holds the kernel against the split version
     (``crossbar_reduce_split_ref``), which adds the splits' partials in the
     kernel's order.  ``exact`` (integer-valued images) asks for the same
     bits as the plain version, as a second launch and as the other side of
-    the dynamic switch."""
+    the dynamic switch.  ``library`` also times ``F.embedding_bag`` on the
+    same inputs (:func:`crossbar_as_embedding_bag`), held to the plain
+    version within the same tolerance."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.crossbar_reduce import crossbar_reduce_cuda
 
@@ -541,6 +596,15 @@ def parity(torch, timer, name, image, tile_ids, bitmaps, *, dynamic_switch=True,
             image, tile_ids, bitmaps, dynamic_switch=dynamic_switch))
         row["plain_ms"] = timer.ms(lambda: plain(image, tile_ids, bitmaps), reps=10)
         row["GB_per_s"] = nbytes / row["ms"] / 1e6
+    if library:
+        call, lib_out = crossbar_as_embedding_bag(torch, image, tile_ids, bitmaps)
+        row["library_err"] = float((lib_out.float() - want.reshape(lib_out.shape).float())
+                                   .abs().max().item())
+        if row["library_err"] > TOL[dtype]:
+            raise AssertionError(f"{name}: F.embedding_bag disagrees with the plain version: "
+                                 f"{row['library_err']}")
+        row["library_ms"] = timer.ms(call)
+        del call, lib_out
     log("parity", json.dumps(row))
     return row
 
@@ -722,7 +786,8 @@ def phase_serving(torch, np, timer):
     sbq = shard_block_queries(fused, server.plan, Q_BLOCK, device=DEVICE)
     half = -(-sbq.num_blocks // 2)
     real = parity(torch, timer, "serving-flush/q8", server.shard_images[0],
-                  sbq.tile_ids[0, :half].contiguous(), sbq.bitmaps[0, :half].contiguous())
+                  sbq.tile_ids[0, :half].contiguous(), sbq.bitmaps[0, :half].contiguous(),
+                  library=True)
     return stats, real, server, tables, streams, histories, {
         "order": order, "out": out, "long_streams": long_streams}
 
@@ -2067,7 +2132,7 @@ def phase_flat(torch, timer, server, tables, streams) -> dict:
         raise AssertionError(f"flat op: launches {launches}, max_abs_err {err}")
     log(f"flat: ops.crossbar_reduce {tuple(out.shape)} vs reduce_dense_oracle "
         f"max_abs_err {err}, launches {launches}")
-    row = parity(torch, timer, "flat-op/q1", image, cq.tile_ids, cq.bitmaps)
+    row = parity(torch, timer, "flat-op/q1", image, cq.tile_ids, cq.bitmaps, library=True)
     return {"launches": launches, "row": row, "oracle_err": err}
 
 
@@ -3907,6 +3972,47 @@ def lm_mesh_granite(torch, np, mesh) -> dict:
     return out
 
 
+def lm_mesh_chunked(torch, np, mesh) -> dict:
+    """chatglm3-6b at its widths and ``LM_TRAIN_LAYERS`` layers: one AdamW
+    step of ``LM_TRAIN_LONG`` (2 x 4,096 tokens: ``chunked_self_attention``
+    on each rank's shard of the scores' layout) on ``mesh`` against off it."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenBatcher
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.train.loop import init_train_state
+    from repro_torch.train.optimizer import AdamW, make_schedule
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), num_layers=LM_TRAIN_LAYERS)
+    opt = AdamW(schedule=make_schedule("cosine", MESH_LM_LR, 1))
+    state = init_train_state(init_lm(torch.Generator(device=DEVICE).manual_seed(7), cfg), opt)
+    data = TokenBatcher(cfg.vocab_size, *LM_TRAIN_LONG, seed=1)
+    batches = [tuple(torch.from_numpy(a).to(DEVICE) for a in data.batch(0))]
+    out = {"arch": cfg.name, "layers": cfg.num_layers,
+           **mesh_vs_plain(torch, np, cfg, opt, state, batches, mesh, traced=False)}
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_mesh_recurrent(torch, np, mesh, arch) -> dict:
+    """``arch``'s smoke config (float32): one AdamW step of
+    ``MESH_REC_BATCH`` on ``mesh`` (the scans on each rank's batch slice,
+    ``batch_local``) against off it."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenBatcher
+    from repro_torch.models.transformer import init_lm
+    from repro_torch.train.loop import init_train_state
+    from repro_torch.train.optimizer import AdamW, make_schedule
+
+    cfg = get_config(arch, smoke=True)
+    opt = AdamW(schedule=make_schedule(cfg.schedule, LM_TRAIN_LR, 1))
+    state = init_train_state(init_lm(torch.Generator(device=DEVICE).manual_seed(8), cfg), opt)
+    data = TokenBatcher(cfg.vocab_size, *MESH_REC_BATCH, seed=2)
+    batches = [tuple(torch.from_numpy(a).to(DEVICE) for a in data.batch(0))]
+    return {"arch": cfg.name, "dtype": cfg.dtype,
+            **mesh_vs_plain(torch, np, cfg, opt, state, batches, mesh, traced=False)}
+
+
 def lm_mesh_pipeline(torch, np, mesh) -> dict:
     """``pipelined_apply`` at the reference example's shape over ``mesh``'s
     ``"stage"`` axis against the sequential product of every stage."""
@@ -4009,6 +4115,11 @@ def phase_lm_mesh(torch, np, smi) -> dict:
             log("lm-mesh chatglm", json.dumps({"card": smi, **stats["chatglm"]}))
             stats["granite"] = lm_mesh_granite(torch, np, mesh)
             log("lm-mesh granite", json.dumps({"card": smi, **stats["granite"]}))
+            stats["chunked"] = lm_mesh_chunked(torch, np, mesh)
+            log("lm-mesh chunked", json.dumps({"card": smi, **stats["chunked"]}))
+            for arch in REC_ARCHS:
+                stats[arch] = lm_mesh_recurrent(torch, np, mesh, arch)
+                log(f"lm-mesh {arch}", json.dumps({"card": smi, **stats[arch]}))
             with deterministic(torch):
                 stats["elastic"] = elastic_restart.main(device=DEVICE,
                                                         ckpt_dir=f"{tmp}/elastic1")
@@ -4066,6 +4177,113 @@ def phase_lm_mesh(torch, np, smi) -> dict:
         raise AssertionError("lm-mesh: the mesh path launched a kernel of the attention or "
                              "embedding paths")
     return stats
+
+
+def phase_dryrun(smi) -> dict:
+    """``python -m repro_torch.launch.dryrun`` for each of ``DRYRUN_CELLS``
+    on ``pod16x16`` (a fake world of 256 ranks, meta tensors: the card's
+    torch runs the dry run's DTensor program; nothing runs on the card),
+    each in a subprocess ended at ``DRYRUN_TIMEOUT_S``, then
+    ``python -m repro_torch.launch.report``'s roofline table of the
+    records.  A non-zero exit or a record without the reference's keys
+    fails the phase."""
+    import tempfile
+
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(SRC), os.environ.get("PYTHONPATH")) if p))
+    keys = ("cell", "arch", "shape", "mesh", "chips", "memory_analysis", "roofline",
+            "compile_seconds")
+    t0 = time.perf_counter()
+    stats = {"cells": []}
+
+    def run(args):
+        proc = subprocess.run([sys.executable, "-m", *args], cwd=ROOT, env=env, text=True,
+                              capture_output=True, timeout=DRYRUN_TIMEOUT_S)
+        if proc.returncode != 0:
+            raise AssertionError(f"dryrun: {args} exited {proc.returncode}:\n"
+                                 f"{proc.stdout[-2000:]}\n{proc.stderr[-6000:]}")
+        return proc.stdout
+
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as out:
+        for arch, shape in DRYRUN_CELLS:
+            t1 = time.perf_counter()
+            run(["repro_torch.launch.dryrun", "--arch", arch, "--mesh", "single", "--force",
+                 "--results-dir", out] + (["--shape", shape] if shape else []))
+            stats["cells"].append({"arch": arch, "shape": shape,
+                                   "seconds": time.perf_counter() - t1})
+        records = [json.loads(p.read_text()) for p in sorted(Path(out).glob("*.json"))]
+        for rec in records:
+            log("dryrun", json.dumps(rec))
+        table = run(["repro_torch.launch.report", "--dir", out])
+    log("dryrun roofline table\n" + table.rstrip())
+    stats["seconds"] = time.perf_counter() - t0
+    log("dryrun", json.dumps({"card": smi, **stats}))
+    if len(records) != len(DRYRUN_CELLS) or any(
+            k not in rec for rec in records for k in keys) or any(
+            rec["chips"] != 256 for rec in records):
+        raise AssertionError(f"dryrun: records {records}")
+    return stats
+
+
+def phase_roofline(lm, lm_train, smi) -> dict:
+    """``RooflineReport`` with ``DEFAULT_H100`` at one chip for the measured
+    LM train step (chatglm3-6b at ``LM_TRAIN_LAYERS`` layers,
+    ``LM_TRAIN_BATCH``, ``train_cost(remat=False)``: the smoke's steps do
+    not recompute) and the served decode step (chatglm3-6b FULL,
+    ``LM_SLOTS`` slots over ``LM_MAX_SEQ``, ``decode_cost`` with an int8
+    cache, ``kv_dtype_bytes=1.125``): each term, the dominant one and the
+    measured p50 over ``bound_time_s``; then ``train_flop`` (the smoke's
+    own FLOP count, which its "share of peak" lines use) beside
+    ``train_cost(remat=False).flops`` (3 x ``forward_flops``) for every
+    config the smoke trains."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch.analytic import decode_cost, train_cost
+    from repro_torch.launch.roofline import RooflineReport
+
+    def report(cfg, shape, cost, p50_ms):
+        rep = RooflineReport(arch=cfg.name, shape=shape.name, mesh="single", chips=1,
+                             hlo_flops=0.0, hlo_bytes=0.0, collective_bytes=0.0,
+                             collective_breakdown={}, analytic_flops=cost.flops,
+                             analytic_bytes=cost.hbm_bytes, gpu=DEFAULT_H100)
+        row = {"arch": cfg.name, "layers": cfg.num_layers, "shape": dataclasses.asdict(shape),
+               "flops": cost.flops, "hbm_bytes": cost.hbm_bytes, "notes": cost.notes,
+               "compute_s": rep.compute_s, "memory_s": rep.memory_s,
+               "collective_s": rep.collective_s, "dominant": rep.dominant,
+               "bound_time_s": rep.bound_time_s, "measured_p50_s": p50_ms / 1e3,
+               "p50_over_bound": p50_ms / 1e3 / rep.bound_time_s}
+        log("roofline", json.dumps({"card": smi, **row}))
+        return row
+
+    chatglm = get_config(LM_ARCH)
+    b, s = LM_TRAIN_BATCH
+    train_cfg = dataclasses.replace(chatglm, num_layers=LM_TRAIN_LAYERS)
+    train_shape = ShapeConfig("lm-train", s, b, "train")
+    serve_shape = ShapeConfig("lm-serve", LM_MAX_SEQ, LM_SLOTS, "decode")
+    out = {"train": report(train_cfg, train_shape, train_cost(train_cfg, train_shape,
+                                                              remat=False),
+                           lm_train["train"]["step_p50_ms"]),
+           "decode": report(chatglm, serve_shape, decode_cost(chatglm, serve_shape,
+                                                              kv_dtype_bytes=1.125),
+                            lm["step_p50_ms"]),
+           "train_flop": []}
+    trained = ((train_cfg, LM_TRAIN_BATCH),
+               (dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_TRAIN_LAYERS),
+                MOE_TRAIN_BATCH),
+               (dataclasses.replace(get_config(VLM_ARCH), num_layers=VLM_LAYERS),
+                VLM_TRAIN_BATCH),
+               (get_config(AUDIO_ARCH), AUDIO_TRAIN_BATCH),
+               (get_config("xlstm-125m"), REC_TRAIN_BATCH),
+               (dataclasses.replace(get_config("zamba2-7b"), num_layers=ZAMBA_TRAIN_LAYERS),
+                REC_TRAIN_BATCH))
+    for cfg, (b, s) in trained:
+        ours = train_flop(cfg, b * s, s)
+        analytic = train_cost(cfg, ShapeConfig("train", s, b, "train"), remat=False).flops
+        row = {"arch": cfg.name, "layers": cfg.num_layers, "batch": [b, s],
+               "train_flop": ours, "train_cost_flops": analytic,
+               "train_flop_over_train_cost": ours / analytic}
+        log("roofline train_flop", json.dumps(row))
+        out["train_flop"].append(row)
+    return out
 
 
 def phase_quickstart(torch) -> dict:
@@ -4221,6 +4439,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_lm_mesh(torch, np, smi)
     mark("lm-mesh")
+    phase_dryrun(smi)
+    mark("dryrun")
+    phase_roofline(lm, lm_train, smi)
+    mark("roofline")
 
     crossbar_src = "src/repro_torch/kernels/csrc/crossbar_reduce.cu"
     kernels = [

@@ -40,7 +40,7 @@ from repro_torch.core.dynamic_switch import (
     select_mode,
     torch_select_mode,
 )
-from repro_torch.core.energy import DEFAULT_RERAM, ReRAMCostModel
+from repro_torch.core.energy import DEFAULT_H100, DEFAULT_RERAM, H100CostModel, ReRAMCostModel
 from repro_torch.core.simulator import (
     SimReport,
     simulate_batch,
@@ -60,7 +60,7 @@ __all__ = [
     "reduce_dense_oracle", "reduce_via_layout", "shard_block_queries",
     "READ_MODE", "MAC_MODE", "popcount", "select_mode", "torch_select_mode",
     "energy_breakeven_rows", "mode_statistics",
-    "ReRAMCostModel", "DEFAULT_RERAM",
+    "ReRAMCostModel", "DEFAULT_RERAM", "H100CostModel", "DEFAULT_H100",
     "SimReport", "simulate_batch", "simulate_cpu_baseline", "simulate_nmars_baseline",
     "baselines",
 ]

@@ -8,9 +8,12 @@ constants are taken from the NeuroSIM / ISAAC / flash-ADC literature the
 paper cites and are documented per field.  The simulator
 (:mod:`repro_torch.core.simulator`) charges events against it.
 
+:class:`H100CostModel` — the roofline constants of one NVIDIA H100 SXM
+card, used by :mod:`repro_torch.launch.roofline` where the reference's
+``TPUCostModel`` stands.
+
 A NumPy copy of the ReRAM half of ``repro.core.energy``; the port keeps
-its own so that it never imports the JAX package.  The accelerator
-roofline model of that module is not part of this copy.
+its own so that it never imports the JAX package.
 """
 
 from __future__ import annotations
@@ -129,4 +132,37 @@ class ReRAMCostModel:
         return lat, energy
 
 
+@dataclasses.dataclass(frozen=True)
+class H100CostModel:
+    """Roofline constants of one NVIDIA H100 SXM5 80 GB card (NVIDIA's H100
+    Tensor Core GPU datasheet; dense rates, no sparsity, at the 700 W
+    power limit).
+
+    ``collective_time`` charges NVLink for a mesh of at most
+    ``nvlink_domain`` cards (the 8 cards of one HGX host, joined all to
+    all) and the network link of each card beyond it: the 256- and
+    512-card production meshes span hosts, so their collectives run at
+    the network's rate.
+    """
+
+    peak_flops: float = 989e12          # bf16 / f16 dense tensor-core FLOP/s (SXM)
+    peak_flops_f32: float = 67e12       # f32 FLOP/s outside the tensor cores (SXM)
+    hbm_bandwidth: float = 3.35e12      # B/s, HBM3 (SXM)
+    hbm_bytes: float = 80e9             # HBM capacity (SXM)
+    nvlink_bandwidth: float = 450e9     # B/s each way, NVLink 4 (900 GB/s total) in one host
+    network_bandwidth: float = 50e9     # B/s a card across hosts: one NDR 400 Gb/s NIC each
+    nvlink_domain: int = 8              # cards an HGX H100 host joins by NVLink
+
+    def compute_time(self, flops: float, chips: int) -> float:
+        return flops / (chips * self.peak_flops)
+
+    def memory_time(self, bytes_: float, chips: int) -> float:
+        return bytes_ / (chips * self.hbm_bandwidth)
+
+    def collective_time(self, bytes_: float, chips: int) -> float:
+        link = self.nvlink_bandwidth if chips <= self.nvlink_domain else self.network_bandwidth
+        return bytes_ / (chips * link)
+
+
 DEFAULT_RERAM = ReRAMCostModel()
+DEFAULT_H100 = H100CostModel()

@@ -385,6 +385,42 @@ def replicated_local(fn, *xs, outputs: int = 1):
                      in_placements=ins, in_grad_placements=ins, redistribute_inputs=True)(*xs)
 
 
+def batch_local(fn, shared, *batched):
+    """``fn(shared, *batched)`` on each rank's slice of the batch.
+
+    Outside an activation context, or with no DTensor argument, it is that
+    call itself.  Inside one, every tensor of the pytree ``shared`` (the
+    parameters) is given whole to every rank, and each of ``batched``
+    (tensors whose dim 0 is the batch; ``None`` passes through) as the
+    rank's slice over the rules' ``"batch"`` axes, sanitized against the
+    batch of ``batched[0]``; every tensor ``fn`` returns is taken as that
+    rank's slice of a batch-sharded DTensor.  Gradients flow back the same
+    way: a parameter's as a partial sum over the batch axes.  The other
+    mesh axes compute the same slice alike, so no collective runs inside
+    ``fn``: the recurrent scans, whose per-step DTensor dispatch would be
+    slow and whose batch dim is the only one the data axes shard."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.utils._pytree import tree_flatten, tree_unflatten
+
+    rules, mesh = _current()
+    flat, spec = tree_flatten((shared, batched))
+    if mesh is None or not any(isinstance(x, DTensor) for x in flat):
+        return fn(shared, *batched)
+    dims = to_placements(sanitize_spec(logical_to_spec(("batch",), rules),
+                                       (batched[0].shape[0],), mesh), mesh)
+    rep = [Replicate()] * mesh.ndim
+    partial = [Partial() if p == Shard(0) else Replicate() for p in dims]
+    n_shared = len(tree_flatten(shared)[0])
+    local = [x if not isinstance(x, torch.Tensor) else
+             place(x, mesh, rep if i < n_shared else dims).to_local(
+                 grad_placements=partial if i < n_shared else dims)
+             for i, x in enumerate(flat)]
+    shared_l, batched_l = tree_unflatten(local, spec)
+    out, out_spec = tree_flatten(fn(shared_l, *batched_l))
+    return tree_unflatten([DTensor.from_local(o, mesh, dims, run_check=False)
+                           if isinstance(o, torch.Tensor) else o for o in out], out_spec)
+
+
 def shard_index(mesh, dims: Sequence[int]) -> Tuple[int, int]:
     """``(index, count)`` of this rank's shard of a tensor dim split over
     the mesh dims ``dims``, major first (DTensor's nesting)."""

@@ -18,7 +18,8 @@ waits on the host.
 
 On CPU tensors the wrapper runs the plain version
 (:func:`repro_torch.kernels.ref.fused_decode_attention_ref`); on CUDA
-tensors it launches the kernels or raises.
+tensors it launches the kernels or raises; on meta tensors (the dry run)
+it returns outputs of the right shapes and computes nothing.
 ``fused_decode_attention_cuda.launches`` counts calls that launched;
 :func:`kernels_per_call` says how many device kernels one such call runs.
 """
@@ -116,6 +117,11 @@ def fused_decode_attention_cuda(
     tensors = (q, k_q, k_s, v_q, v_s, length)
     if all(t.device.type == "cpu" for t in tensors):
         return _ref.fused_decode_attention_ref(q, k_q, k_s, v_q, v_s, length)
+    if all(t.device.type == "meta" for t in tensors):
+        b, kvh, g, hd = q.shape
+        return (torch.empty((b, kvh, g, hd), dtype=torch.float32, device="meta"),
+                torch.empty((b, kvh, g), dtype=torch.float32, device="meta"),
+                torch.empty((b, kvh, g), dtype=torch.float32, device="meta"))
     device = q.device
     if device.type != "cuda" or any(t.device != device for t in tensors):
         raise ValueError(

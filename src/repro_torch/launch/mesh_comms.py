@@ -7,7 +7,9 @@ and counts every collective DTensor issues, forward and backward: calls
 and bytes for each op, and for each op and tensor shape, the largest
 first.  A call's bytes are those of the larger of its input and its
 output on one rank (an all-gather's gathered tensor, a reduce-scatter's
-input, an all-reduce's tensor).
+input, an all-reduce's tensor); :meth:`CollectiveCounter.breakdown` keeps
+the bytes of each call's result instead, keyed as XLA names its
+collectives, for the dry run's roofline (:mod:`repro_torch.launch.roofline`).
 
 Usage::
 
@@ -34,19 +36,23 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.configs import get_config
 from repro_torch.dist import sharding as sh
-from repro_torch.launch.dryrun import batch_specs
 from repro_torch.models.transformer import init_lm
 from repro_torch.train.loop import _value_and_grad
 
 
-_COLLECTIVES = frozenset({"all_gather_into_tensor", "reduce_scatter_tensor", "all_reduce",
-                          "all_to_all_single", "broadcast"})
+# each functional collective DTensor issues, by the name XLA's HLO gives it
+HLO_NAMES = {"all_gather_into_tensor": "all-gather", "all_gather_into_tensor_coalesced":
+             "all-gather", "reduce_scatter_tensor": "reduce-scatter",
+             "reduce_scatter_tensor_coalesced": "reduce-scatter", "all_reduce": "all-reduce",
+             "all_reduce_coalesced": "all-reduce", "all_to_all_single": "all-to-all",
+             "broadcast": "broadcast"}
 
 
 class CollectiveCounter(TorchDispatchMode):
     """Records each ``_c10d_functional`` collective that runs inside it as
-    ``(op, shape, bytes)``; DTensor ops are let through first, so what is
-    seen is what their redistributions issue."""
+    ``(op, shape, bytes, result bytes)``; DTensor ops are let through
+    first, so what is seen is what their redistributions issue, on each
+    rank's local tensors, once a call (every loop trip is a call)."""
 
     def __init__(self):
         super().__init__()
@@ -58,21 +64,35 @@ class CollectiveCounter(TorchDispatchMode):
         if any(issubclass(t, DTensor) for t in types):
             return NotImplemented
         out = func(*args, **(kwargs or {}))
-        ns, name = func.namespace, func._opname
-        if ns == "_c10d_functional" and name in _COLLECTIVES:
-            ts = [a for a in args if isinstance(a, torch.Tensor)]
-            ts += [o for o in (out if isinstance(out, (list, tuple)) else [out])
-                   if isinstance(o, torch.Tensor)]
-            big = max(ts, key=lambda t: t.numel())
-            self.calls.append((name, tuple(big.shape), big.numel() * big.element_size()))
+        self.record(func, args, out)
         return out
+
+    def record(self, func, args, out) -> None:
+        """Notes ``func`` if it is a functional collective."""
+        if func.namespace != "_c10d_functional" or func._opname not in HLO_NAMES:
+            return
+        outs = [o for o in (out if isinstance(out, (list, tuple)) else [out])
+                if isinstance(o, torch.Tensor)]
+        ts = [a for a in args if isinstance(a, torch.Tensor)] + outs
+        big = max(ts, key=lambda t: t.numel())
+        self.calls.append((func._opname, tuple(big.shape), big.numel() * big.element_size(),
+                           sum(o.numel() * o.element_size() for o in outs)))
+
+    def breakdown(self) -> dict:
+        """Result bytes summed by kind, under XLA's names (``all-gather``,
+        ``reduce-scatter``, ``all-reduce``, ``all-to-all``): what the
+        reference's ``collective_bytes_from_hlo`` sums."""
+        out = defaultdict(int)
+        for name, _, _, result in self.calls:
+            out[HLO_NAMES[name]] += result
+        return dict(out)
 
     def summary(self, top: Optional[int] = 8) -> dict:
         """Calls and bytes by op, and by (op, shape) the ``top`` largest
         in bytes (all of them at ``None``)."""
         ops = defaultdict(lambda: {"calls": 0, "bytes": 0})
         shapes = defaultdict(lambda: {"calls": 0, "bytes": 0})
-        for name, shape, nbytes in self.calls:
+        for name, shape, nbytes, _ in self.calls:
             for d in (ops[name], shapes[name, shape]):
                 d["calls"] += 1
                 d["bytes"] += nbytes
@@ -87,6 +107,8 @@ def measure(arch: str, mesh, *, moe_impl: Optional[str] = None, b: int = 4, s: i
     """The collectives of one ``_value_and_grad`` of ``arch``'s smoke config
     (float32, seeded) on ``mesh`` (:meth:`CollectiveCounter.summary`);
     every rank of the mesh calls it."""
+    from repro_torch.launch.dryrun import batch_specs
+
     cfg = get_config(arch, smoke=True)
     if moe_impl:
         cfg = dataclasses.replace(cfg, moe_impl=moe_impl)

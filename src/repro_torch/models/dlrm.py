@@ -57,8 +57,9 @@ class DLRMConfig:
 def init_dlrm(generator: torch.Generator, cfg: DLRMConfig, device="cuda") -> Params:
     """Tables ~ N(0, 0.01²), MLP weights from :func:`dense_init`, zero
     biases; drawn on the generator's device (tables, then bottom, then
-    top) and moved to ``device``."""
-    gen_device = generator.device
+    top) and moved to ``device``.  On a ``"meta"`` device nothing is
+    drawn: the tree's shapes and dtypes alone (the dry run's)."""
+    gen_device = "meta" if torch.device(device).type == "meta" else generator.device
     dtype = cfg.torch_dtype
     params: Params = {"tables": {}}
     for t in range(cfg.num_tables):

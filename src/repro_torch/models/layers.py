@@ -21,23 +21,33 @@ Params = Dict[str, Any]
 
 # ---------------------------------------------------------------- inits --
 
-def _trunc_normal(generator: torch.Generator, shape, std: float, dtype) -> torch.Tensor:
-    """Truncated normal (±3 σ) drawn in float32 on the generator's device,
-    scaled by ``std`` and cast once to ``dtype``."""
-    w = torch.empty(shape, device=generator.device)
+def on_device(generator: torch.Generator, device=None) -> torch.device:
+    """``device``, or the generator's device when it is ``None``: where the
+    init helpers put what they draw.  A ``"meta"`` device with a CPU
+    generator makes the tree's shapes and dtypes without its values (the
+    dry run's parameters)."""
+    return generator.device if device is None else torch.device(device)
+
+
+def _trunc_normal(generator: torch.Generator, shape, std: float, dtype,
+                  device=None) -> torch.Tensor:
+    """Truncated normal (±3 σ) drawn in float32 on ``device`` (default the
+    generator's), scaled by ``std`` and cast once to ``dtype``."""
+    w = torch.empty(shape, device=on_device(generator, device))
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -3.0, 3.0, generator=generator)
     return (w * std).to(dtype)
 
 
 def dense_init(generator: torch.Generator, in_dim: int, out_dim: int, dtype,
-               *, scale: float = 1.0) -> torch.Tensor:
+               *, scale: float = 1.0, device=None) -> torch.Tensor:
     """``(in_dim, out_dim)`` truncated normal with σ = scale/√in_dim."""
-    return _trunc_normal(generator, (in_dim, out_dim), scale / math.sqrt(in_dim), dtype)
+    return _trunc_normal(generator, (in_dim, out_dim), scale / math.sqrt(in_dim), dtype, device)
 
 
-def embed_init(generator: torch.Generator, vocab: int, dim: int, dtype) -> torch.Tensor:
+def embed_init(generator: torch.Generator, vocab: int, dim: int, dtype,
+               device=None) -> torch.Tensor:
     """``(vocab, dim)`` truncated normal with σ = 0.02."""
-    return _trunc_normal(generator, (vocab, dim), 0.02, dtype)
+    return _trunc_normal(generator, (vocab, dim), 0.02, dtype, device)
 
 
 # ---------------------------------------------------------------- norms --
@@ -69,14 +79,15 @@ def apply_norm(p: Params, x: torch.Tensor, kind: str = "rmsnorm",
 # ----------------------------------------------------------------- mlps --
 
 def init_mlp(generator: torch.Generator, d_model: int, d_ff: int, act: str, dtype,
-             *, use_bias: bool = False) -> Params:
+             *, use_bias: bool = False, device=None) -> Params:
+    device = on_device(generator, device)
     p: Params = {}
     if act in ("swiglu", "geglu"):
-        p["in_gate"] = dense_init(generator, d_model, d_ff, dtype)
-    p["out"] = dense_init(generator, d_ff, d_model, dtype, scale=0.5)
-    p["in_val"] = dense_init(generator, d_model, d_ff, dtype)
+        p["in_gate"] = dense_init(generator, d_model, d_ff, dtype, device=device)
+    p["out"] = dense_init(generator, d_ff, d_model, dtype, scale=0.5, device=device)
+    p["in_val"] = dense_init(generator, d_model, d_ff, dtype, device=device)
     if use_bias:
-        p["bias_out"] = torch.zeros((d_model,), dtype=dtype, device=generator.device)
+        p["bias_out"] = torch.zeros((d_model,), dtype=dtype, device=device)
     return p
 
 

@@ -26,34 +26,41 @@ cast to the model dtype before ``xh · D``.  ``softplus`` is
 ``F.softplus(x, beta=1, threshold=20)``: past 20 it returns ``x`` where
 JAX computes ``logaddexp(x, 0)``, which differs there by less than
 ``exp(-20) ≈ 2.1e-9``, below float32's ulp at 20.
+
+On a device mesh the two projections (``w_in``, ``w_out``) run as their
+tensors are laid out, tensor- and FSDP-parallel, and the conv, the SSD
+chunks and the gated norm on each rank's batch slice
+(``dist.sharding.batch_local``), so no rank gathers a layer's weights.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import Params, _trunc_normal, dense_init
+from repro_torch.dist.sharding import batch_local
+from repro_torch.models.layers import Params, _trunc_normal, dense_init, on_device
 
 CONV_W = 4
 
 
 def init_mamba2(generator: torch.Generator, d_model: int, ssm_state: int, dtype, *,
-                head_dim: int = 64) -> Params:
+                head_dim: int = 64, device=None) -> Params:
     d_inner = 2 * d_model
     heads = d_inner // head_dim
     N = ssm_state
-    device = generator.device
+    device = on_device(generator, device)
     return {
         # fused input projection: [x, z, B, C, dt]
-        "w_in": dense_init(generator, d_model, 2 * d_inner + 2 * N + heads, dtype),
-        "conv": _trunc_normal(generator, (CONV_W, d_inner), 0.2, dtype),
+        "w_in": dense_init(generator, d_model, 2 * d_inner + 2 * N + heads, dtype, device=device),
+        "conv": _trunc_normal(generator, (CONV_W, d_inner), 0.2, dtype, device),
         "A_log": torch.log(torch.linspace(1.0, 16.0, heads, device=device)).float(),
         "D": torch.ones((heads,), dtype=torch.float32, device=device),
         "dt_bias": torch.zeros((heads,), dtype=torch.float32, device=device),
-        "w_out": dense_init(generator, d_inner, d_model, dtype, scale=0.5),
+        "w_out": dense_init(generator, d_inner, d_model, dtype, scale=0.5, device=device),
         "norm_scale": torch.ones((d_inner,), dtype=dtype, device=device),
     }
 
@@ -109,13 +116,31 @@ def mamba2_scan(
     conv_state: torch.Tensor | None = None,
 ) -> Tuple[torch.Tensor, tuple]:
     """The chunked SSD form over ``u``, the sequence padded to a multiple
-    of ``chunk``.  Returns ``(y (b, s, d_model), (h_last, conv_state))``."""
-    b, s, d_model = u.shape
-    d_inner = 2 * d_model
+    of ``chunk``.  Returns ``(y (b, s, d_model), (h_last, conv_state))``.
+    On a mesh the conv, the SSD chunks and the gated norm run on each
+    rank's batch slice (``batch_local``), the two projections as the
+    tensors are laid out."""
+    fn = functools.partial(_mamba2_scan, ssm_state=ssm_state, head_dim=head_dim, chunk=chunk)
+    y, state = batch_local(fn, _core_params(p), u @ p["w_in"], init_state, conv_state)
+    return y @ p["w_out"], state
+
+
+def _core_params(p: Params) -> Params:
+    """The small parameters the recurrence itself reads, given whole to
+    every rank."""
+    return {k: p[k] for k in ("conv", "A_log", "D", "dt_bias", "norm_scale")}
+
+
+def _mamba2_scan(p: Params, proj: torch.Tensor, init_state, conv_state, *, ssm_state: int,
+                 head_dim: int, chunk: int):
+    """The recurrence over the input projection ``proj = u @ w_in``:
+    ``(y (b, s, d_inner) before w_out, (h_last, conv_state))``."""
+    b, s, _ = proj.shape
+    d_inner = p["conv"].shape[1]
     heads = d_inner // head_dim
     N = ssm_state
 
-    x, z, B, C, dt = _split_proj(u @ p["w_in"], d_inner, N, heads)
+    x, z, B, C, dt = _split_proj(proj, d_inner, N, heads)
     x, conv_out_state = _causal_conv(x, p["conv"], conv_state)
     x = F.silu(x)
     B = F.silu(B)   # (b, s, N): shared across heads (Mamba2 multi-value)
@@ -139,9 +164,10 @@ def mamba2_scan(
 
     # per-step decay a_t = exp(dt_t * A), its cumulative log within a chunk
     cum = torch.cumsum(dtc * A, dim=2)                           # (b, nc, chunk, H)
-    causal = torch.ones((chunk, chunk), dtype=torch.bool, device=u.device).tril()[None, :, :, None]
+    causal = torch.ones((chunk, chunk), dtype=torch.bool, device=proj.device).tril()
+    causal = causal[None, :, :, None]
 
-    h = (torch.zeros((b, heads, head_dim, N), dtype=torch.float32, device=u.device)
+    h = (torch.zeros((b, heads, head_dim, N), dtype=torch.float32, device=proj.device)
          if init_state is None else init_state)
     ys = []
     for c in range(nc):
@@ -159,11 +185,10 @@ def mamba2_scan(
         tail = torch.exp(cumk[:, -1][:, None, :] - cumk)         # (b, t, H)
         dBx = torch.einsum("bth,btn,bthp->bhpn", dtk * tail, Bck.float(), xck)
         h = h * total[:, :, None, None] + dBx
-        ys.append((y_intra + y_state).to(u.dtype))
+        ys.append((y_intra + y_state).to(proj.dtype))
     y = torch.cat(ys, dim=1)[:, :s]                              # (b, s, H, hd)
-    y = y + xh * p["D"][None, None, :, None].to(u.dtype)
-    y = _gated_rmsnorm(p, y.reshape(b, s, d_inner), z, u.dtype)
-    return y @ p["w_out"], (h, conv_out_state)
+    y = y + xh * p["D"][None, None, :, None].to(proj.dtype)
+    return _gated_rmsnorm(p, y.reshape(b, s, d_inner), z, proj.dtype), (h, conv_out_state)
 
 
 def mamba2_decode_step(
@@ -176,12 +201,19 @@ def mamba2_decode_step(
     head_dim: int = 64,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The O(1) recurrence step.  Returns ``(y (b, 1, d), new_state,
-    new_conv_state)``."""
-    b, _, d_model = u.shape
-    d_inner = 2 * d_model
+    new_conv_state)``; on a mesh the recurrence on each rank's batch
+    slice, the projections as the tensors are laid out."""
+    fn = functools.partial(_mamba2_decode_step, ssm_state=ssm_state, head_dim=head_dim)
+    y, state, conv_state = batch_local(fn, _core_params(p), u @ p["w_in"], state, conv_state)
+    return y @ p["w_out"], state, conv_state
+
+
+def _mamba2_decode_step(p: Params, proj, state, conv_state, *, ssm_state: int, head_dim: int):
+    b = proj.shape[0]
+    d_inner = p["conv"].shape[1]
     heads = d_inner // head_dim
 
-    x, z, B, C, dt = _split_proj(u @ p["w_in"], d_inner, ssm_state, heads)
+    x, z, B, C, dt = _split_proj(proj, d_inner, ssm_state, heads)
     x, conv_state = _causal_conv(x, p["conv"], conv_state)
     x = F.silu(x)[:, 0]                                          # (b, d_inner)
     B = F.silu(B)[:, 0]                                          # (b, N)
@@ -194,5 +226,5 @@ def mamba2_decode_step(
     state = state * decay[:, :, None, None] + torch.einsum("bh,bn,bhp->bhpn", dt, B.float(), xh)
     y = torch.einsum("bn,bhpn->bhp", C.float(), state)                   # (b, H, p)
     y = y + xh * p["D"][None, :, None]
-    y = _gated_rmsnorm(p, y.reshape(b, 1, d_inner).to(u.dtype), z, u.dtype)
-    return y @ p["w_out"], state, conv_state
+    y = _gated_rmsnorm(p, y.reshape(b, 1, d_inner).to(proj.dtype), z, proj.dtype)
+    return y, state, conv_state

@@ -57,18 +57,20 @@ _HID_SHARDINGS = (
 
 
 def init_moe(generator: torch.Generator, d_model: int, d_ff: int, moe: MoEConfig, act: str,
-             dtype) -> Params:
+             dtype, *, device=None) -> Params:
     """JAX's leaves and shapes: ``router`` float32 ``(d, E)``,
     ``w_gate``/``w_val`` ``(E, d, f)``, ``w_out`` ``(E, f, d)``."""
     E = moe.num_experts
     p: Params = {
-        "router": dense_init(generator, d_model, E, torch.float32),  # router in f32
-        "w_out": _trunc_normal(generator, (E, d_ff, d_model), 0.5 / math.sqrt(d_ff), dtype),
-        "w_val": _trunc_normal(generator, (E, d_model, d_ff), 1.0 / math.sqrt(d_model), dtype),
+        "router": dense_init(generator, d_model, E, torch.float32, device=device),  # f32
+        "w_out": _trunc_normal(generator, (E, d_ff, d_model), 0.5 / math.sqrt(d_ff), dtype,
+                               device),
+        "w_val": _trunc_normal(generator, (E, d_model, d_ff), 1.0 / math.sqrt(d_model), dtype,
+                               device),
     }
     if act in ("swiglu", "geglu"):
         p["w_gate"] = _trunc_normal(generator, (E, d_model, d_ff), 1.0 / math.sqrt(d_model),
-                                    dtype)
+                                    dtype, device)
     return p
 
 

@@ -73,37 +73,39 @@ from repro_torch.models.layers import (
     init_mlp,
     init_norm,
     layer_slice,
+    on_device,
     tree_map,
 )
 from repro_torch.models.moe import apply_moe, apply_moe_shardmap, init_moe
 
-def _init_block(generator: torch.Generator, cfg: ModelConfig) -> Params:
+def _init_block(generator: torch.Generator, cfg: ModelConfig, device) -> Params:
     """One decoder block (dense/moe/audio families, vlm self blocks)."""
     d, hd, dtype = cfg.d_model, cfg.resolved_head_dim, cfg.torch_dtype
-    device = generator.device
     p: Params = {
         "norm_attn": init_norm(d, cfg.norm, dtype, device),
         "attn": attn.init_attention(
-            generator, d, cfg.num_heads, cfg.kv_heads, hd, dtype, use_bias=cfg.use_bias
+            generator, d, cfg.num_heads, cfg.kv_heads, hd, dtype, use_bias=cfg.use_bias,
+            device=device,
         ),
         "norm_mlp": init_norm(d, cfg.norm, dtype, device),
     }
     if cfg.moe:
-        p["moe"] = init_moe(generator, d, cfg.d_ff, cfg.moe, cfg.act, dtype)
+        p["moe"] = init_moe(generator, d, cfg.d_ff, cfg.moe, cfg.act, dtype, device=device)
     elif cfg.d_ff:
-        p["mlp"] = init_mlp(generator, d, cfg.d_ff, cfg.act, dtype, use_bias=cfg.use_bias)
+        p["mlp"] = init_mlp(generator, d, cfg.d_ff, cfg.act, dtype, use_bias=cfg.use_bias,
+                            device=device)
     return p
 
 
-def _init_cross_block(generator: torch.Generator, cfg: ModelConfig) -> Params:
+def _init_cross_block(generator: torch.Generator, cfg: ModelConfig, device) -> Params:
     """One gated cross-attention block of a vlm superblock."""
-    d, dtype, device = cfg.d_model, cfg.torch_dtype, generator.device
+    d, dtype = cfg.d_model, cfg.torch_dtype
     return {
         "norm": init_norm(d, cfg.norm, dtype, device),
         "xattn": attn.init_cross_attention(generator, d, cfg.num_heads, cfg.kv_heads,
-                                           cfg.resolved_head_dim, d, dtype),
+                                           cfg.resolved_head_dim, d, dtype, device=device),
         "norm_mlp": init_norm(d, cfg.norm, dtype, device),
-        "mlp": init_mlp(generator, d, cfg.d_ff, cfg.act, dtype),
+        "mlp": init_mlp(generator, d, cfg.d_ff, cfg.act, dtype, device=device),
     }
 
 
@@ -149,12 +151,13 @@ def zamba_layout(cfg: ModelConfig) -> tuple[int, int, int]:
     return n_super, period, cfg.num_layers - n_super * period
 
 
-def _init_xlstm_layers(generator: torch.Generator, cfg: ModelConfig) -> Params:
-    dtype, device = cfg.torch_dtype, generator.device
+def _init_xlstm_layers(generator: torch.Generator, cfg: ModelConfig, device) -> Params:
+    dtype = cfg.torch_dtype
 
     def block(init_cell):
         return lambda: {"norm": init_norm(cfg.d_model, cfg.norm, dtype, device),
-                        "cell": init_cell(generator, cfg.d_model, cfg.num_heads, dtype)}
+                        "cell": init_cell(generator, cfg.d_model, cfg.num_heads, dtype,
+                                          device=device)}
 
     n_s = num_slstm(cfg)
     layers = {"mlstm": _stacked(cfg.num_layers - n_s, block(xlstm.init_mlstm))}
@@ -163,13 +166,14 @@ def _init_xlstm_layers(generator: torch.Generator, cfg: ModelConfig) -> Params:
     return layers
 
 
-def _init_zamba_layers(generator: torch.Generator, cfg: ModelConfig) -> Params:
-    dtype, device = cfg.torch_dtype, generator.device
+def _init_zamba_layers(generator: torch.Generator, cfg: ModelConfig, device) -> Params:
+    dtype = cfg.torch_dtype
     n_super, period, n_tail = zamba_layout(cfg)
 
     def block():
         return {"norm": init_norm(cfg.d_model, cfg.norm, dtype, device),
-                "mamba": mamba2.init_mamba2(generator, cfg.d_model, cfg.ssm_state, dtype)}
+                "mamba": mamba2.init_mamba2(generator, cfg.d_model, cfg.ssm_state, dtype,
+                                            device=device)}
 
     body = _stacked(n_super * period, block)
     out = {
@@ -177,7 +181,7 @@ def _init_zamba_layers(generator: torch.Generator, cfg: ModelConfig) -> Params:
         "shared_attn": {
             "norm": init_norm(cfg.d_model, cfg.norm, dtype, device),
             "attn": attn.init_attention(generator, cfg.d_model, cfg.num_heads, cfg.kv_heads,
-                                        cfg.resolved_head_dim, dtype),
+                                        cfg.resolved_head_dim, dtype, device=device),
         },
     }
     if n_tail:
@@ -185,34 +189,35 @@ def _init_zamba_layers(generator: torch.Generator, cfg: ModelConfig) -> Params:
     return out
 
 
-def init_lm(generator: torch.Generator, cfg: ModelConfig) -> Params:
-    """The parameter tree of an LM of any family, on the generator's
-    device.  Layers are drawn one at a time (:func:`_stacked`)."""
-    dtype, device = cfg.torch_dtype, generator.device
+def init_lm(generator: torch.Generator, cfg: ModelConfig, *, device=None) -> Params:
+    """The parameter tree of an LM of any family, on ``device`` (default
+    the generator's; ``"meta"`` for shapes and dtypes alone).  Layers are
+    drawn one at a time (:func:`_stacked`)."""
+    dtype, device = cfg.torch_dtype, on_device(generator, device)
     params: Params = {"final_norm": init_norm(cfg.d_model, cfg.norm, dtype, device)}
     V = cfg.padded_vocab
     if cfg.family == "audio":
         for c in range(cfg.num_codebooks):
-            params[f"embed_{c}"] = embed_init(generator, V, cfg.d_model, dtype)
-            params[f"head_{c}"] = dense_init(generator, cfg.d_model, V, dtype)
+            params[f"embed_{c}"] = embed_init(generator, V, cfg.d_model, dtype, device)
+            params[f"head_{c}"] = dense_init(generator, cfg.d_model, V, dtype, device=device)
     else:
-        params["embed"] = embed_init(generator, V, cfg.d_model, dtype)
+        params["embed"] = embed_init(generator, V, cfg.d_model, dtype, device)
         if not cfg.tie_embeddings:
-            params["lm_head"] = dense_init(generator, cfg.d_model, V, dtype)
+            params["lm_head"] = dense_init(generator, cfg.d_model, V, dtype, device=device)
 
     if cfg.family == "ssm":
-        params["layers"] = _init_xlstm_layers(generator, cfg)
+        params["layers"] = _init_xlstm_layers(generator, cfg, device)
     elif cfg.family == "hybrid":
-        params["layers"] = _init_zamba_layers(generator, cfg)
+        params["layers"] = _init_zamba_layers(generator, cfg, device)
     elif cfg.family == "vlm":
         n_super, period = vlm_superblocks(cfg)
-        blocks = _stacked(n_super * period, lambda: _init_block(generator, cfg))
+        blocks = _stacked(n_super * period, lambda: _init_block(generator, cfg, device))
         params["layers"] = {
             "super": tree_map(lambda x: x.reshape(n_super, period, *x.shape[1:]), blocks),
-            "cross": _stacked(n_super, lambda: _init_cross_block(generator, cfg)),
+            "cross": _stacked(n_super, lambda: _init_cross_block(generator, cfg, device)),
         }
     else:  # dense | moe | audio
-        params["layers"] = _stacked(cfg.num_layers, lambda: _init_block(generator, cfg))
+        params["layers"] = _stacked(cfg.num_layers, lambda: _init_block(generator, cfg, device))
     return params
 
 

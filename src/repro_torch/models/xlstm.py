@@ -14,30 +14,41 @@ mLSTM, ``n0 = 1`` and ``m0 = 0`` for sLSTM, whose normalizer is
 ``max(n, 1e-6)``.  Every mask is applied to a log-space value before its
 ``exp`` (the chunked form's causal mask, the padded steps' ``log_i =
 -1e30`` and ``log_f = 0``), so no ``inf · 0`` reaches a gradient.
+
+On a device mesh each scan runs whole, its projections included, on each
+rank's batch slice (``dist.sharding.batch_local``: the parameters given
+whole to every rank).  Its projections do not run tensor-parallel, as
+Mamba2's do: the mLSTM's normalizer divides by ``max(|q·n|, e^{-m})``,
+which turned a TP split's other summation order into errors of 2-6e-5 on
+the smoke config's logits (held to 1e-5 against one device), and the
+family's weights are small (xlstm-125m's, 0.2 GB).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import Params, _trunc_normal, dense_init
+from repro_torch.dist.sharding import batch_local
+from repro_torch.models.layers import Params, _trunc_normal, dense_init, on_device
 
 
 # ------------------------------------------------------------- mLSTM ----
 
-def init_mlstm(generator: torch.Generator, d_model: int, num_heads: int, dtype) -> Params:
-    device = generator.device
+def init_mlstm(generator: torch.Generator, d_model: int, num_heads: int, dtype, *,
+               device=None) -> Params:
+    device = on_device(generator, device)
     return {
-        "wq": dense_init(generator, d_model, d_model, dtype),
-        "wk": dense_init(generator, d_model, d_model, dtype),
-        "wv": dense_init(generator, d_model, d_model, dtype),
-        "wo": dense_init(generator, d_model, d_model, dtype, scale=0.5),
+        "wq": dense_init(generator, d_model, d_model, dtype, device=device),
+        "wk": dense_init(generator, d_model, d_model, dtype, device=device),
+        "wv": dense_init(generator, d_model, d_model, dtype, device=device),
+        "wo": dense_init(generator, d_model, d_model, dtype, scale=0.5, device=device),
         # input & forget gate projections (scalar per head, f32 for stability)
-        "wif": dense_init(generator, d_model, 2 * num_heads, torch.float32),
+        "wif": dense_init(generator, d_model, 2 * num_heads, torch.float32, device=device),
         "b_i": torch.zeros((num_heads,), dtype=torch.float32, device=device),
         "b_f": torch.full((num_heads,), 3.0, dtype=torch.float32, device=device),
     }
@@ -59,7 +70,13 @@ def mlstm_scan(
     init_state: tuple | None = None,
 ) -> Tuple[torch.Tensor, tuple]:
     """The sequential mLSTM.  Returns ``(y (b, s, d), (C, n, m))``, the
-    final state float32 ``(b, H, hd, hd)``, ``(b, H, hd)``, ``(b, H)``."""
+    final state float32 ``(b, H, hd, hd)``, ``(b, H, hd)``, ``(b, H)``.
+    On a mesh it runs on each rank's batch slice (``batch_local``, see the
+    module docstring)."""
+    return batch_local(functools.partial(_mlstm_scan, num_heads=num_heads), p, x, init_state)
+
+
+def _mlstm_scan(p: Params, x: torch.Tensor, init_state, *, num_heads: int):
     b, s, d = x.shape
     hd = d // num_heads
     scale = 1.0 / math.sqrt(hd)
@@ -100,6 +117,14 @@ def mlstm_chunked(
     *,
     chunk: int = 256,
 ) -> Tuple[torch.Tensor, tuple]:
+    """Chunkwise-parallel mLSTM (:func:`_mlstm_chunked`); on a mesh on each
+    rank's batch slice (``batch_local``)."""
+    return batch_local(functools.partial(_mlstm_chunked, num_heads=num_heads, chunk=chunk),
+                       p, x)
+
+
+def _mlstm_chunked(p: Params, x: torch.Tensor, *, num_heads: int,
+                   chunk: int) -> Tuple[torch.Tensor, tuple]:
     """Chunkwise-parallel mLSTM, equal to :func:`mlstm_scan` up to the
     order of the float32 sums, with ``ceil(s / chunk)`` sequential steps.
 
@@ -174,21 +199,22 @@ def mlstm_decode_step(p: Params, x: torch.Tensor, state: tuple, num_heads: int):
 
 # ------------------------------------------------------------- sLSTM ----
 
-def init_slstm(generator: torch.Generator, d_model: int, num_heads: int, dtype) -> Params:
+def init_slstm(generator: torch.Generator, d_model: int, num_heads: int, dtype, *,
+               device=None) -> Params:
     hd = d_model // num_heads
-    device = generator.device
+    device = on_device(generator, device)
     return {
         # input projections for [z, i, f, o]
-        "w_in": dense_init(generator, d_model, 4 * d_model, dtype),
+        "w_in": dense_init(generator, d_model, 4 * d_model, dtype, device=device),
         # block-diagonal recurrent weights per head: (H, hd, 4*hd)
         "w_rec": _trunc_normal(generator, (num_heads, hd, 4 * hd), 1.0 / math.sqrt(hd),
-                               torch.float32),
+                               torch.float32, device),
         "bias": torch.cat([
             torch.zeros((2 * d_model,), dtype=torch.float32, device=device),
             torch.full((d_model,), 3.0, dtype=torch.float32, device=device),  # forget bias
             torch.zeros((d_model,), dtype=torch.float32, device=device),
         ]),
-        "wo": dense_init(generator, d_model, d_model, dtype, scale=0.5),
+        "wo": dense_init(generator, d_model, d_model, dtype, scale=0.5, device=device),
     }
 
 
@@ -200,7 +226,12 @@ def slstm_scan(
     init_state: tuple | None = None,
 ) -> Tuple[torch.Tensor, tuple]:
     """The sequential sLSTM.  Returns ``(y (b, s, d), (c, n, h, m))``, each
-    state float32 ``(b, d)``."""
+    state float32 ``(b, d)``.  On a mesh it runs on each rank's batch
+    slice (``batch_local``)."""
+    return batch_local(functools.partial(_slstm_scan, num_heads=num_heads), p, x, init_state)
+
+
+def _slstm_scan(p: Params, x: torch.Tensor, init_state, *, num_heads: int):
     b, s, d = x.shape
     hd = d // num_heads
     xin = (x @ p["w_in"]).float()  # (b, s, 4d)

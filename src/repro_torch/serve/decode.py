@@ -29,6 +29,13 @@ past ``W`` wraps by design, where the dense cache's write past
 ``max_seq`` raises.  A slot takes part when ``0 <= pos <= len``, masked
 before the float32 softmax.  Both of the hybrid's lengths (``len`` and
 ``shared["len"]``) count up in place.
+
+On a device mesh (inside an activation context, the cache laid out by
+the dry run's ``cache_specs``) the embedding is the vocab-parallel
+lookup, every cache write goes to each rank's own shard
+(``attention.write_at``), each new state is laid out as the cache's
+before its copy, and the attention runs on local shards (see
+:mod:`repro_torch.models.attention`).
 """
 
 from __future__ import annotations
@@ -39,12 +46,13 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import placed_like
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2, xlstm
 from repro_torch.models.layers import apply_mlp, apply_norm, layer_slice
 from repro_torch.models.moe import apply_moe
 from repro_torch.models.rope import apply_rope
-from repro_torch.models.transformer import cross_block_fwd, vlm_superblocks
+from repro_torch.models.transformer import _embed, cross_block_fwd, vlm_superblocks
 
 
 def _attn_kwargs(cfg: ModelConfig) -> dict:
@@ -114,9 +122,8 @@ def decode_step(
 
 def _embed_tokens(params, cfg: ModelConfig, tokens):
     if cfg.family == "audio":
-        return sum(params[f"embed_{c}"][tokens[:, c].long()]
-                   for c in range(cfg.num_codebooks))
-    return params["embed"][tokens.long()]
+        return sum(_embed(params[f"embed_{c}"], tokens[:, c]) for c in range(cfg.num_codebooks))
+    return _embed(params["embed"], tokens)
 
 
 def _project_logits(params, cfg: ModelConfig, x):
@@ -207,13 +214,13 @@ def _decode_vlm(params, cfg, tokens, cache, enc):
 
 def _write_state(dst: tuple, src: tuple) -> None:
     for d, v in zip(dst, src):
-        d.copy_(v)
+        d.copy_(placed_like(v, d))
 
 
 def _decode_xlstm(params, cfg, tokens, cache):
     """Every sLSTM block followed by its ``period - 1`` mLSTM blocks; with
     no sLSTM (``slstm_every = 0``) the mLSTM blocks alone."""
-    x = params["embed"][tokens.long()]
+    x = _embed_tokens(params, cfg, tokens)
     layers = params["layers"]
     n_s = cache["s_c"].shape[0]
     n_m_per = cache["m_C"].shape[0] // max(n_s, 1)   # the mLSTM blocks after each sLSTM
@@ -251,7 +258,7 @@ def _mamba_decode(mp, x, h, conv, cfg: ModelConfig):
 def _decode_zamba(params, cfg, tokens, cache):
     """Each superblock's Mamba2 layers, then the shared attention over the
     superblock's ring; the tail's Mamba2 layers last."""
-    x = params["embed"][tokens.long()]
+    x = _embed_tokens(params, cfg, tokens)
     layers = params["layers"]
     length = cache["len"]
     period = cfg.shared_attn_period
@@ -291,8 +298,11 @@ def _ring_attention_at(p, x, kc, vc, pc, length, cfg: ModelConfig):
     attn.write_at(kc, 1, slot, k)
     attn.write_at(vc, 1, slot, v)
     attn.write_at(pc, 1, slot, pos)
-    scores = attn._gqa_scores(q, kc).float() / math.sqrt(hd)
     valid = (pc >= 0) & (pc <= length)
+    if attn.seq_split_dims(kc):
+        out = attn.attention_over_seq_shards(q, kc, vc, valid, x.dtype, 1.0 / math.sqrt(hd))
+        return x + out @ p["attn"]["wo"]
+    scores = attn._gqa_scores(q, kc).float() / math.sqrt(hd)
     scores = torch.where(valid[:, None, None, None, :], scores, -1e30)
     w = torch.softmax(scores, dim=-1).to(x.dtype)
     return x + attn._gqa_out(w, vc) @ p["attn"]["wo"]

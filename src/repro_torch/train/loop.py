@@ -71,6 +71,11 @@ def make_train_step(
     the parameters' device (``enc`` is read only with ``has_enc``); the
     leading batch dim must be divisible by ``microbatches``.  ``metrics``
     holds 0-d float32 device tensors ``loss`` and ``grad_norm``.
+
+    Microbatch ``i`` is the ``i``-th contiguous slice of the batch; on a
+    mesh (a DTensor batch) it is rows ``i, i + m, …`` of each rank's own
+    slice, so no row moves between ranks: the same mean gradient, summed
+    in another order.
     """
 
     def train_step(state: TrainState, batch) -> Tuple[TrainState, dict]:
@@ -84,6 +89,8 @@ def make_train_step(
                                  f"microbatches={microbatches}")
 
             def split(x):
+                if hasattr(x, "placements"):
+                    return x.reshape(-1, microbatches, *x.shape[1:]).transpose(0, 1)
                 return x.reshape(microbatches, -1, *x.shape[1:])
 
             tk, lb = split(tokens), split(labels)

@@ -87,7 +87,19 @@ def lm_params(cfg, seed=0):
     return init_lm(torch.Generator().manual_seed(seed), cfg)
 
 
-def one_device(cfg, params, tokens, labels, dp):
+def lm_enc(cfg, b=4, seed=2):
+    """Seeded image embeddings ``(b, num_image_tokens, d_model)`` for a vlm
+    config, else ``None``."""
+    import torch
+
+    if cfg.family != "vlm":
+        return None
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(
+        (0.1 * rng.standard_normal((b, cfg.num_image_tokens, cfg.d_model))).astype(np.float32))
+
+
+def one_device(cfg, params, tokens, labels, dp, enc=None):
     """``(logits, loss, grads)`` of the port on one device.  The shard-local
     MoE at ``dp`` data shards routes each shard's batch slice on its own,
     so its oracle is the one-device run on each slice: logits
@@ -98,8 +110,8 @@ def one_device(cfg, params, tokens, labels, dp):
     from repro_torch.train.loop import _value_and_grad
 
     if cfg.moe_impl != "shardmap" or dp == 1:
-        loss, grads = _value_and_grad(cfg, params, tokens, labels, None, False)
-        return forward(params, cfg, tokens)[0], loss, grads
+        loss, grads = _value_and_grad(cfg, params, tokens, labels, enc, False)
+        return forward(params, cfg, tokens, enc=enc)[0], loss, grads
     from repro_torch.models.layers import tree_map
 
     b = tokens.shape[0] // dp
@@ -111,7 +123,7 @@ def one_device(cfg, params, tokens, labels, dp):
     return logits, loss, grads
 
 
-def on_mesh(cfg, params, tokens, labels, mesh):
+def on_mesh(cfg, params, tokens, labels, mesh, enc=None):
     """The same on ``mesh``: parameters by ``param_specs_for``, the batch by
     ``batch_specs``, inside the activation context."""
     from repro_torch.dist import sharding as sh
@@ -123,11 +135,13 @@ def on_mesh(cfg, params, tokens, labels, mesh):
     dparams = sh.distribute_tree(
         params, sh.sanitize_specs_tree(sh.param_specs_for(params, rules), params, mesh), mesh)
     batch = {"tokens": tokens, "labels": labels}
+    if enc is not None:
+        batch["enc"] = enc
     batch = sh.distribute_tree(batch, batch_specs(batch, rules, mesh), mesh)
     with sh.activation_sharding_ctx(mesh, rules):
-        logits, _ = forward(dparams, cfg, batch["tokens"])
-        loss, grads = _value_and_grad(cfg, dparams, batch["tokens"], batch["labels"], None,
-                                      False)
+        logits, _ = forward(dparams, cfg, batch["tokens"], enc=batch.get("enc"))
+        loss, grads = _value_and_grad(cfg, dparams, batch["tokens"], batch["labels"],
+                                      batch.get("enc"), False)
     return dparams, logits, loss, grads
 
 
@@ -138,22 +152,24 @@ def _max_abs(a, b) -> float:
 # -------------------------------------------------------------- cases --
 
 
-def case_lm(world, *, arch, shape, impl=None):
-    """forward logits, ``lm_loss`` and its gradients on ``shape`` against
-    the one-device port; the gradients' placements against the
-    parameters', the loss's against replicated."""
+def case_lm(world, *, arch, shape, impl=None, s=16):
+    """forward logits, ``lm_loss`` and its gradients on ``shape`` at ``s``
+    tokens against the one-device port; the gradients' placements against
+    the parameters', the loss's against replicated."""
     from torch.distributed.tensor import Replicate
 
     from repro_torch.models.layers import tree_leaves
 
     cfg = lm_config(arch, impl)
     params = lm_params(cfg)
-    tokens, labels = lm_batch(cfg)
+    tokens, labels = lm_batch(cfg, s=s)
+    enc = lm_enc(cfg)
     mesh = submesh(shape)
     if not in_mesh(world, shape):
         return None
-    want_logits, want_loss, want_grads = one_device(cfg, params, tokens, labels, shape[0])
-    dparams, logits, loss, grads = on_mesh(cfg, params, tokens, labels, mesh)
+    want_logits, want_loss, want_grads = one_device(cfg, params, tokens, labels, shape[0],
+                                                    enc)
+    dparams, logits, loss, grads = on_mesh(cfg, params, tokens, labels, mesh, enc)
     placements_kept = all(tuple(g.placements) == tuple(p.placements)
                           for g, p in zip(tree_leaves(grads), tree_leaves(dparams)))
     out = {
@@ -256,9 +272,11 @@ def train_steps(cfg, state, step_fn, batches, mesh=None):
     return state, losses, norms
 
 
-def case_adamw(world, *, arch, shape, steps=3):
+def case_adamw(world, *, arch, shape, steps=3, microbatches=1):
     """``steps`` AdamW steps on ``shape`` against the same steps off the
-    mesh: losses, grad norms and the updated parameters."""
+    mesh: losses, grad norms and the updated parameters.  With
+    ``microbatches`` the mesh's microbatches are rows ``i, i + m, …`` of
+    each rank's slice, the one device's contiguous slices."""
     from torch.distributed.tensor import DTensor
 
     from repro_torch.dist import sharding as sh
@@ -269,7 +287,7 @@ def case_adamw(world, *, arch, shape, steps=3):
 
     cfg = lm_config(arch)
     opt = AdamW(schedule=lambda s: 1e-3)
-    step_fn = make_train_step(cfg, opt)
+    step_fn = make_train_step(cfg, opt, microbatches=microbatches)
     batches = [lm_batch(cfg, seed=10 + i) for i in range(steps)]
     mesh = submesh(shape)
     if not in_mesh(world, shape):
@@ -393,5 +411,131 @@ def case_pipeline(world, *, S, shape, names, M=8, MB=16, D=64, L=3):
     return float(err) if world.rank == 0 else None
 
 
-CASES = {"lm": case_lm, "moe": case_moe, "comms": case_comms, "adamw": case_adamw, "restore": case_restore,
+def case_chunked(world, *, arch, shape, s=32, chunk=8, window=0, seed=4):
+    """``chunked_self_attention`` at ``chunk``-token query and key blocks
+    on ``shape`` against the one-device port: the output and the
+    gradients of ``sum(y * w)`` for x and every weight."""
+    import torch
+
+    from repro_torch.dist import sharding as sh
+    from repro_torch.models.attention import chunked_self_attention, init_attention
+
+    cfg = lm_config(arch)
+    hd = cfg.resolved_head_dim
+    p = init_attention(torch.Generator().manual_seed(seed), cfg.d_model, cfg.num_heads,
+                       cfg.kv_heads, hd, torch.float32)
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((4, s, cfg.d_model)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((4, s, cfg.d_model)).astype(np.float32))
+    mesh = submesh(shape)
+    if not in_mesh(world, shape):
+        return None
+    kw = dict(num_heads=cfg.num_heads, kv_heads=cfg.kv_heads, head_dim=hd, q_chunk=chunk,
+              k_chunk=chunk, window=window)
+    names = sorted(p)
+
+    def run(p, x, w):
+        live = {k: v.detach().requires_grad_(True) for k, v in p.items()}
+        lx = x.detach().requires_grad_(True)
+        y = chunked_self_attention(live, lx, **kw)
+        return y, torch.autograd.grad((y * w).sum(), [lx] + [live[k] for k in names])
+
+    want_y, want_g = run(p, x, w)
+    rules = sh.LOGICAL_RULES_SINGLE_POD
+    specs = sh.sanitize_specs_tree(sh.param_specs_for({"attn": p}, rules), {"attn": p}, mesh)
+    dp_ = sh.distribute_tree(p, specs["attn"], mesh)
+    bs = sh.P("data", None, None)
+    with sh.activation_sharding_ctx(mesh, rules):
+        y, g = run(dp_, sh.shard_tensor(x, mesh, bs), sh.shard_tensor(w, mesh, bs))
+    out = {"y": _max_abs(y.full_tensor(), want_y),
+           "grads": max(_max_abs(a.full_tensor(), b) for a, b in zip(g, want_g))}
+    return out if world.rank == 0 else None
+
+
+def decode_run(cfg, params, steps, *, max_seq=16, quant=False, readonly=True, mesh=None,
+               prio=None, b=4, seed=5):
+    """``steps`` decode steps from an empty cache: the logits of each and
+    the final cache.  On ``mesh`` the parameters, the cache
+    (``cache_specs``, ``prio`` its override), the tokens and ``enc`` are
+    laid out by the dry run's specs, inside the activation context."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.dist import sharding as sh
+    from repro_torch.launch.dryrun import batch_specs, cache_specs
+    from repro_torch.serve.decode import decode_step
+    from repro_torch.serve.kvcache import init_cache
+
+    rng = np.random.default_rng(seed)
+    shape = (b, cfg.num_codebooks, 1) if cfg.family == "audio" else (b, 1)
+    toks = [torch.from_numpy(rng.integers(0, cfg.vocab_size, size=shape).astype(np.int32))
+            for _ in range(steps)]
+    enc = None
+    if cfg.family == "vlm":
+        enc = torch.from_numpy(rng.standard_normal(
+            (b, cfg.num_image_tokens, cfg.d_model)).astype(np.float32))
+    cache = init_cache(cfg, b, max_seq, quant=quant, device="cpu")
+    rules = sh.LOGICAL_RULES_SINGLE_POD
+    ctx = contextlib.nullcontext()
+    if mesh is not None:
+        params = sh.distribute_tree(params, sh.sanitize_specs_tree(
+            sh.param_specs_for(params, rules), params, mesh), mesh)
+        cache = sh.distribute_tree(cache, cache_specs(cache, rules, mesh,
+                                                      priority_override=prio), mesh)
+        toks = [sh.distribute_tree(t, batch_specs(t, rules, mesh), mesh) for t in toks]
+        if enc is not None:
+            enc = sh.distribute_tree(enc, batch_specs(enc, rules, mesh), mesh)
+        ctx = sh.activation_sharding_ctx(mesh, rules)
+    logits = []
+    with ctx, torch.no_grad():
+        for t in toks:
+            out, cache = decode_step(params, cfg, t, cache, enc=enc, readonly_cache=readonly)
+            logits.append(out)
+    return logits, cache
+
+
+def case_decode(world, *, arch, shape, steps=3, quant=False, readonly=True, prio=None):
+    """``steps`` decode steps on ``shape`` against the one-device port: the
+    logits of every step and every leaf of the final cache."""
+    from repro_torch.dist import sharding as sh
+    from repro_torch.models.layers import tree_leaves
+
+    cfg = lm_config(arch)
+    params = lm_params(cfg)
+    mesh = submesh(shape)
+    if not in_mesh(world, shape):
+        return None
+    kw = dict(quant=quant, readonly=readonly)
+    want_l, want_c = decode_run(cfg, params, steps, **kw)
+    got_l, got_c = decode_run(cfg, params, steps, mesh=mesh, prio=prio, **kw)
+    got_c = sh.gather_tree(got_c)
+    out = {"logits": max(_max_abs(a.full_tensor(), b) for a, b in zip(got_l, want_l)),
+           "cache": max(_max_abs(a, b) for a, b in zip(tree_leaves(got_c),
+                                                          tree_leaves(want_c))),
+           "placements": sorted({str(t.placements) for t in tree_leaves(got_l)})}
+    return out if world.rank == 0 else None
+
+
+def case_cell(world, *, arch, shape_name, s, b, shape=(2, 2)):
+    """The dry run's program of one cell (``dryrun.cell_program``) at
+    ``arch``'s smoke config and ``(b, s)`` on CPU tensors: its FLOPs,
+    bytes and collectives by kind."""
+    from repro_torch.configs import SHAPES, ShapeConfig
+    from repro_torch.dist import sharding as sh
+    from repro_torch.launch.dryrun import cell_program
+
+    cfg = lm_config(arch)
+    mesh = submesh(shape)
+    if not in_mesh(world, shape):
+        return None
+    shp = ShapeConfig(shape_name, s, b, SHAPES[shape_name].kind)
+    counter, memory, _ = cell_program(cfg, shp, shape_name, mesh, sh.LOGICAL_RULES_SINGLE_POD,
+                                      device="cpu")
+    out = {"flops": counter.flops, "bytes": counter.bytes, "breakdown": counter.breakdown(),
+           "argument_size_gib": memory["argument_size_gib"]}
+    return out if world.rank == 0 else None
+
+
+CASES = {"lm": case_lm, "chunked": case_chunked, "decode": case_decode, "cell": case_cell, "moe": case_moe, "comms": case_comms, "adamw": case_adamw, "restore": case_restore,
          "elastic": case_elastic, "pipeline": case_pipeline}

@@ -139,10 +139,24 @@ def test_wrapper_checks_block_s_as_the_reference_does():
 
 
 def test_wrapper_refuses_a_device_that_is_neither_cpu_nor_cuda():
-    tt = [t.to("meta") for t in _tensors()]
+    # all on the meta device is the dry run's shape-only path (below), so
+    # the refused case is a meta query beside CPU caches
+    tt = list(_tensors())
+    tt[0] = tt[0].to("meta")
     before = fused_decode_attention_cuda.launches
     with pytest.raises(ValueError, match="CUDA device"):
         fused_decode_attention_cuda(*tt, block_s=256)
+    assert fused_decode_attention_cuda.launches == before
+
+
+def test_wrapper_on_meta_tensors_gives_shapes_and_launches_nothing():
+    tt = [t.to("meta") for t in _tensors()]
+    before = fused_decode_attention_cuda.launches
+    out, m, l = fused_decode_attention_cuda(*tt, block_s=256)
+    b, kvh, g, hd = tt[0].shape
+    assert [t.device.type for t in (out, m, l)] == ["meta"] * 3
+    assert out.shape == (b, kvh, g, hd) and m.shape == l.shape == (b, kvh, g)
+    assert out.dtype == m.dtype == l.dtype == torch.float32
     assert fused_decode_attention_cuda.launches == before
 
 

@@ -60,10 +60,44 @@ MOE_SHAPES = [(2, 1), (4, 1), (2, 2)]
 COMMS_CASES = [("minicpm-2b", None, (2, 2)), ("command-r-35b", None, (1, 4)),
                ("granite-moe-3b-a800m", "shardmap", (2, 2))]
 COMMS_SEQ = 96  # no other dim of these smoke configs is 96
+# the families and lengths whose forward raised on a mesh before their
+# cores ran on local shards: the recurrent scans (the sLSTM, the
+# sequential and, from 256 tokens, chunkwise mLSTM; the Mamba2 conv and
+# SSD chunks) and the vlm cross-attention over a model axis its 2 kv heads
+# do not divide
+REPAIR_CASES = [("xlstm-125m", (2, 2), 16), ("zamba2-7b", (2, 2), 16),
+                ("xlstm-125m", (2, 2), 256), ("llama-3.2-vision-11b", (1, 4), 16)]
+# chunked_self_attention at 8-token blocks: the kv heads split, the
+# q-groups split, neither (with a sliding window)
+CHUNKED_CASES = [("minicpm-2b", (2, 2), 0), ("command-r-35b", (1, 4), 0),
+                 ("chatglm3-6b", (1, 4), 12)]
+SEQ_CACHE = {"k": (2,), "v": (2,), "k_scale": (2,), "v_scale": (2,)}
+# decode_step with the cache laid out by cache_specs: every family; the
+# read-only and writing paths, an int8 cache under each score layout, and
+# sequence-sharded caches, whose attention all-reduces the softmax's
+# partials (the kv heads of chatglm3-6b and command-r-35b do not divide
+# model 4, so theirs are sequence-sharded; SEQ_CACHE forces it elsewhere,
+# the hybrid's ring included)
+DECODE_CASES = [
+    ("minicpm-2b", (2, 2), False, True, None), ("minicpm-2b", (2, 2), False, False, None),
+    ("minicpm-2b", (2, 2), True, True, None), ("minicpm-2b", (2, 2), False, True, SEQ_CACHE),
+    ("chatglm3-6b", (1, 4), True, True, None), ("command-r-35b", (1, 4), True, True, None),
+    ("granite-moe-3b-a800m", (2, 2), False, True, None),
+    ("llama-3.2-vision-11b", (2, 2), False, False, None),
+    ("llama-3.2-vision-11b", (2, 2), False, False, SEQ_CACHE),
+    ("musicgen-medium", (2, 2), True, True, None), ("xlstm-125m", (2, 2), False, True, None),
+    ("zamba2-7b", (2, 2), False, True, None), ("zamba2-7b", (2, 2), False, True, SEQ_CACHE),
+]
+# dry-run cells run for real on 4 gloo ranks, against the fake world of 4
+CELL_CASES = [("minicpm-2b", "train_4k", 16, 8), ("chatglm3-6b", "decode_32k", 64, 8)]
 
 
 def _lm_name(arch, impl, shape):
     return f"lm-{arch}-{impl}-{shape[0]}x{shape[1]}"
+
+
+def _case_id(*parts):
+    return "-".join(str(p) for p in parts)
 
 
 @pytest.fixture(scope="module")
@@ -84,8 +118,19 @@ def world4(tmp_path_factory, jax_ckpt):
     cases += [("moe-indivisible", "moe", {"shape": (4, 1), "b": 2})]
     cases += [(f"comms-{_lm_name(a, i, s)}", "comms",
                {"arch": a, "impl": i, "shape": s, "s": COMMS_SEQ}) for a, i, s in COMMS_CASES]
+    cases += [(_case_id("repair", *c), "lm", {"arch": c[0], "shape": c[1], "s": c[2]})
+              for c in REPAIR_CASES]
+    cases += [(_case_id("chunked", *c), "chunked", {"arch": c[0], "shape": c[1], "window": c[2]})
+              for c in CHUNKED_CASES]
+    cases += [(_case_id("decode", *c), "decode", {"arch": c[0], "shape": c[1], "quant": c[2],
+                                                  "readonly": c[3], "prio": c[4]})
+              for c in DECODE_CASES]
+    cases += [(_case_id("cell", *c), "cell", {"arch": c[0], "shape_name": c[1], "s": c[2],
+                                              "b": c[3]}) for c in CELL_CASES]
     cases += [
         ("adamw", "adamw", {"arch": "minicpm-2b", "shape": (2, 2)}),
+        ("adamw-mb2", "adamw", {"arch": "minicpm-2b", "shape": (2, 2), "steps": 1,
+                                "microbatches": 2}),
         ("restore", "restore", {"ckpt_dir": str(tmp_path_factory.mktemp("ckpt")),
                                 "jax_dir": jax_ckpt[0]}),
         ("elastic", "elastic", {"ckpt_dir": str(tmp_path_factory.mktemp("elastic"))}),
@@ -147,8 +192,59 @@ def test_step_gathers_neither_scores_nor_embedding_table(world4, arch, impl, sha
                     and math.prod(c["shape"]) == cfg.padded_vocab * cfg.d_model), c
 
 
+@pytest.mark.parametrize("arch,shape,s", REPAIR_CASES)
+def test_recurrent_and_cross_attention_forward_loss_and_grads_on_mesh(world4, arch, shape, s):
+    r = _ok(world4, _case_id("repair", arch, shape, s))
+    assert r["logits"] <= ATOL and r["loss"] <= ATOL and r["grads"] <= ATOL, r
+    assert r["placements_kept"] and r["loss_replicated"], r
+
+
+@pytest.mark.parametrize("arch,shape,window", CHUNKED_CASES)
+def test_chunked_attention_on_mesh_equals_one_device(world4, arch, shape, window):
+    r = _ok(world4, _case_id("chunked", arch, shape, window))
+    assert r["y"] <= ATOL and r["grads"] <= ATOL, r
+
+
+@pytest.mark.parametrize("arch,shape,quant,readonly,prio", DECODE_CASES)
+def test_decode_steps_on_mesh_equal_one_device(world4, arch, shape, quant, readonly, prio):
+    """Three decode steps from an empty cache laid out by ``cache_specs``:
+    every step's logits and the final cache, int8 entries bit for bit."""
+    r = _ok(world4, _case_id("decode", arch, shape, quant, readonly, prio))
+    assert r["logits"] <= ATOL and r["cache"] <= ATOL, r
+
+
+@pytest.mark.parametrize("arch,shape_name,s,b", CELL_CASES)
+def test_fake_world_counts_what_a_gloo_world_counts(world4, arch, shape_name, s, b):
+    """The dry run's program of a cell on (2, 2): meta tensors on a fake
+    world of 4 ranks count the FLOPs, collectives and argument bytes that
+    CPU tensors on 4 gloo ranks count."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import SHAPES, ShapeConfig
+    from repro_torch.launch import dryrun
+
+    real = _ok(world4, _case_id("cell", arch, shape_name, s, b))
+    shp = ShapeConfig(shape_name, s, b, SHAPES[shape_name].kind)
+    with dryrun.fake_world(4):
+        mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
+        counter, memory, _ = dryrun.cell_program(W.lm_config(arch), shp, shape_name, mesh,
+                                                 sh.LOGICAL_RULES_SINGLE_POD)
+    assert real["breakdown"] and counter.breakdown() == real["breakdown"]
+    assert counter.flops == real["flops"] > 0
+    assert memory["argument_size_gib"] == real["argument_size_gib"]
+
+
 def test_three_adamw_steps_on_mesh_equal_off_mesh(world4):
     r = _ok(world4, "adamw")
+    assert r["all_dtensor"], r
+    assert r["loss"] <= ATOL and r["grad_norm"] <= ATOL, r
+    assert r["params"] <= STEP_ATOL and r["moments"] <= ATOL, r
+
+
+def test_microbatched_step_on_mesh_equals_off_mesh(world4):
+    """One AdamW step over 2 microbatches: on the mesh each rank splits its
+    own rows (``make_train_step``), off it the batch's halves."""
+    r = _ok(world4, "adamw-mb2")
     assert r["all_dtensor"], r
     assert r["loss"] <= ATOL and r["grad_norm"] <= ATOL, r
     assert r["params"] <= STEP_ATOL and r["moments"] <= ATOL, r
