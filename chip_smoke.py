@@ -27,7 +27,8 @@ Phases, in order; any failure propagates and the process exits non-zero:
    integer-valued images at the serving shape, bit-identical to the plain
    and split versions, launch to launch and across the switch; at R=64,
    D=128, q=8 over a 100k-tile image, with kernel and plain times (CUDA
-   events, median) and memory bounds;
+   events, median) and memory bounds; every row also carries the
+   reference's MAC-only count (``reduction_flops``) as ``mac_flops``;
 4. serving: ``ShardedEmbeddingServer(device="cuda")`` over 8 tables of
    932,019 rows (embed_dim 64 zero-padded to 128 columns, as the JAX
    DLRM kernel path pads), group_size 64, q_block 8, batch_size 256, one
@@ -124,8 +125,8 @@ Phases, in order; any failure propagates and the process exits non-zero:
    its bound, one split, its plain version and SDPA;
 9. LM: ``chatglm3-6b`` FULL decode with an int8 cache through the
    kernel: logits against the plain version and a bf16 cache, 16
-   requests served, 28 launches a step, the kernel at the served layer,
-   a profiled window;
+   requests served, 28 launches a step, the kernel and SDPA at the served
+   layer, a profiled window;
 10. LM training: ``chatglm3-6b`` at its published widths cut to 4 of 28
    layers (bf16, AdamW), trained through ``launch.train.train``: 8 steps
    of 8 x 512 ``TokenBatcher`` tokens (steps 4-7 over 2 microbatches),
@@ -148,8 +149,8 @@ Phases, in order; any failure propagates and the process exits non-zero:
    FULL (32 layers, 40 experts top-8, bf16) served through
    ``launch.serve.serve`` with an int8 cache of 4 slots x 4,096 (4
    requests of 16 + 16; logits over 4 steps within bf16 tolerance of the
-   plain version's, 32 kernel launches a step, the kernel at the served
-   layer, one traced step); the same at 8 of 32 layers trained 4 AdamW
+   plain version's, 32 kernel launches a step, the kernel and SDPA at the
+   served layer, one traced step); the same at 8 of 32 layers trained 4 AdamW
    steps of 8 x 512 tokens (steps 2-3 over 2 microbatches; aux loss,
    matmul FLOPs share, one traced step); ``llama-3.2-vision-11b`` at its
    widths and 5 of 40 layers (one superblock): one train step of 2 x 512
@@ -214,8 +215,9 @@ Phases, in order; any failure propagates and the process exits non-zero:
    config.
 
 The kernels are built in parallel (one ``nvcc`` per source).  It then
-prints the host seconds of each phase, one ``{"kernels": [...]}`` line,
-the ``nvidia-smi`` line,
+prints the host seconds of each phase, one ``{"kernels": [...]}`` line
+(the flash-decode entry also carries its two served layers' time, bound
+and SDPA time under ``served_layers``), the ``nvidia-smi`` line,
 and as its last line ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or outside a checkout of the repository, it exits non-zero and
 prints no result.  It imports nothing of ``jax`` or ``repro``.
@@ -554,7 +556,10 @@ def parity(torch, timer, name, image, tile_ids, bitmaps, *, dynamic_switch=True,
     bits as the plain version, as a second launch and as the other side of
     the dynamic switch.  ``library`` also times ``F.embedding_bag`` on the
     same inputs (:func:`crossbar_as_embedding_bag`), held to the plain
-    version within the same tolerance."""
+    version within the same tolerance.  ``mac_flops`` is the reference's
+    count (``reduction_flops``: MAC tiles only) beside ``flops``, the
+    nonzero products the bound is taken on."""
+    from repro_torch.core.reduction import reduction_flops
     from repro_torch.kernels import ref
     from repro_torch.kernels.crossbar_reduce import crossbar_reduce_cuda
 
@@ -590,6 +595,7 @@ def parity(torch, timer, name, image, tile_ids, bitmaps, *, dynamic_switch=True,
            "shape": [list(image.shape), list(bitmaps.shape)],
            "max_abs_err": err, "tol": TOL[dtype], "bytes": nbytes,
            "slot_bytes": slot_bytes, "flops": flops,
+           "mac_flops": reduction_flops(bitmaps, image.shape[2], dynamic_switch),
            "bound_ms": bound_ms, "bound_by": bound_by}
     if timed:
         row["ms"] = timer.ms(lambda: crossbar_reduce_cuda(
@@ -2523,6 +2529,18 @@ def da_sdpa(torch, q, k_q, k_s, v_q, v_s, length):
     return library, 2 * kb.numel() * kb.element_size()
 
 
+def da_library(torch, timer, row, inputs, length) -> None:
+    """Adds SDPA's time on the kernel's inputs to ``row`` (:func:`da_sdpa`),
+    with the bytes it reads and its distance from the kernel's output."""
+    from repro_torch.kernels.decode_attention import fused_decode_attention_cuda
+
+    lib_fn, row["library_bytes"] = da_sdpa(torch, *inputs, length)
+    ln = torch.tensor(length, dtype=torch.int32, device=DEVICE)
+    out, _, l = fused_decode_attention_cuda(*inputs, ln)
+    row["library_max_abs_err"] = float((lib_fn().float() - out / l[..., None]).abs().max().item())
+    row["library_ms"] = timer.ms(lib_fn)
+
+
 def da_device_us(torch, timer, fn, reps: int = 10) -> dict:
     """Median device time (µs) of each kernel ``fn`` launches, from
     ``torch.profiler``, each call after the timer's L2 scrub; with two
@@ -2579,11 +2597,7 @@ def da_timed(torch, timer, name, inputs, length) -> dict:
     row["ms_one_split"] = timer.ms(lambda: kda.fused_decode_attention_cuda(*inputs, ln, n_split=1))
     row["device_us"] = da_device_us(torch, timer, lambda: kda.fused_decode_attention_cuda(*inputs, ln))
     row["plain_ms"] = timer.ms(lambda: ref.fused_decode_attention_ref(*inputs, ln), reps=5)
-    lib_fn, row["library_bytes"] = da_sdpa(torch, *inputs, length)
-    out, _, l = kda.fused_decode_attention_cuda(*inputs, ln)
-    row["library_max_abs_err"] = float((lib_fn().float() - out / l[..., None]).abs().max().item())
-    row["library_ms"] = timer.ms(lib_fn)
-    del lib_fn, out, l
+    da_library(torch, timer, row, inputs, length)
     row["GB_per_s"] = nbytes / row["ms"] / 1e6
     log(f"da-{name}", json.dumps(row))
     return row
@@ -2774,6 +2788,7 @@ def phase_lm(torch, np, timer) -> dict:
     served["kernels_per_call"] = kda.kernels_per_call(served["n_split"])
     nbytes, flops = da_work(qg, *layer, length)
     served["bound_ms"], served["bound_by"] = bound(nbytes, flops, "bfloat16")
+    da_library(torch, timer, served, (qg, *layer), length)
     log("da-served", json.dumps(served))
     with torch.no_grad():
         prof = profile_decode(torch, params, cfg, cache, LM_PROFILE_STEPS)
@@ -2789,6 +2804,7 @@ def phase_lm(torch, np, timer) -> dict:
         final_len=length, step_mean_ms=float(np.mean(step_ms)),
         step_first_ms=step_ms[0], checks=checks,
         served_kernel_ms=served["ms"], served_kernel_bound_ms=served["bound_ms"],
+        served_library_ms=served["library_ms"],
         profile=prof,
     )
     log("lm", json.dumps(stats))
@@ -3324,6 +3340,7 @@ def fam_moe_serve(torch, np, timer) -> dict:
     ln = torch.tensor(length, dtype=torch.int32, device=DEVICE)
     served["ms"] = timer.ms(lambda: kda.fused_decode_attention_cuda(qg, *layer, ln))
     served["bound_ms"], served["bound_by"] = bound(*da_work(qg, *layer, length), "bfloat16")
+    da_library(torch, timer, served, (qg, *layer), length)
     with torch.no_grad():
         prof = profile_decode(torch, params, cfg, cache, 1)
     prof["host_ops_per_layer"] = prof["host_ops_per_step"] / cfg.num_layers
@@ -4467,6 +4484,14 @@ def main() -> int:
                      "src/repro/kernels/decode_attention.py:94",
                      lm["kernel_launches"] + lm_train["kernel_launches"]
                      + lm_families["kernel_launches"], da_row),
+    ]
+    # the flash-decode kernel at the two served layers, beside SDPA there
+    moe_layer = lm_families["moe_serve"]["served_layer"]
+    kernels[-1]["served_layers"] = [
+        {"case": "da-served", "ms": lm["served_kernel_ms"],
+         "bound_ms": lm["served_kernel_bound_ms"], "library_ms": lm["served_library_ms"]},
+        {"case": "moe-served-layer", "ms": moe_layer["ms"],
+         "bound_ms": moe_layer["bound_ms"], "library_ms": moe_layer["library_ms"]},
     ]
     log("phases", json.dumps(phase_s))
     log(f"total: {time.perf_counter() - t_start:.1f} s")

@@ -574,3 +574,19 @@ def reduce_via_layout(
         out = torch.where((count <= 1)[..., None], read, out)
     out = out * (tile_ids >= 0)[..., None]
     return out.sum(dim=1)
+
+
+def reduction_flops(bitmaps, dim: int, dynamic_switch: bool) -> int:
+    """FLOPs of the layout reduction (for benchmark reporting).
+
+    ``bitmaps`` is the flat ``(batch, max_tiles, tile_rows)`` or blocked
+    ``(nb, max_tiles, q_block, tile_rows)`` mask, as a NumPy array or a
+    tensor on any device.  A MAC tile (popcount > 1 with the dynamic
+    switch, > 0 without) costs ``2 * tile_rows * dim``; a READ tile is a
+    copy and counts 0.  Popcounts are summed in int64, so they are exact
+    in every bitmap dtype.
+    """
+    a = _host(bitmaps) if isinstance(bitmaps, torch.Tensor) else np.asarray(bitmaps)
+    counts = (a != 0).sum(axis=-1, dtype=np.int64)
+    mac_tiles = counts > 1 if dynamic_switch else counts > 0
+    return int(mac_tiles.sum()) * 2 * a.shape[-1] * dim

@@ -213,6 +213,26 @@ def test_retry_policy_and_ledger_match_reference():
 # --------------------------------------- legacy driver fault branches --
 
 
+def _submit_all(srv, replay):
+    """Submits ``replay``; returns whether a submit raised the injected
+    fault.  An inline submit raises from the flush it ran after taking
+    its query.  A threaded submit raises a fault the driver stashed
+    before it takes its query, so it is repeated until it does: when
+    the driver reaches the fault before the last submit, that query
+    would otherwise be lost."""
+    raised = False
+    for name, q in replay:
+        while True:
+            try:
+                srv.submit(name, q)
+                break
+            except tfaults.InjectedFault:
+                raised = True
+                if not srv.policy.threaded:
+                    break
+    return raised
+
+
 @pytest.mark.parametrize("num_shards", [1, 2, 4])
 @pytest.mark.parametrize("threaded", [False, True])
 @pytest.mark.parametrize("kind", ["compile", "device"])
@@ -223,12 +243,7 @@ def test_legacy_requeue_and_reraise_branches(num_shards, threaded, kind):
     srv = _server("port", [(kind, {"tick": 0})], num_shards=num_shards,
                   threaded=threaded, retry={"max_retries": 0, "bisect": False,
                                             "quarantine": False})
-    raised = False
-    for name, q in REPLAY:
-        try:
-            srv.submit(name, q)
-        except tfaults.InjectedFault:
-            raised = True
+    raised = _submit_all(srv, REPLAY)
     if threaded:
         deadline = time.monotonic() + 30.0
         while not raised and time.monotonic() < deadline:
@@ -250,12 +265,7 @@ def test_legacy_requeue_and_reraise_branches(num_shards, threaded, kind):
 def test_legacy_late_device_fault_requeues_at_retire(threaded):
     srv = _server("port", [("device-late", {"tick": 0})], threaded=threaded,
                   retry={"max_retries": 0, "bisect": False, "quarantine": False})
-    raised, outs = False, []
-    for name, q in REPLAY:
-        try:
-            srv.submit(name, q)
-        except tfaults.InjectedFault:
-            raised = True
+    raised, outs = _submit_all(srv, REPLAY), []
     deadline = time.monotonic() + 30.0
     while time.monotonic() < deadline:
         try:
@@ -272,6 +282,34 @@ def test_legacy_late_device_fault_requeues_at_retire(threaded):
         assert served.shape == ORACLE[n].shape
         np.testing.assert_array_equal(served[np.lexsort(served.T)],
                                       ORACLE[n][np.lexsort(ORACLE[n].T)])
+    srv.close()
+
+
+def test_threaded_submit_after_stashed_fault_takes_no_query():
+    """The race the replay loops guard against, forced: the driver
+    stashes a compile fault before the next submit, which raises it
+    without taking its query; the retried submit takes it, and the drain
+    serves every query exactly once, bit for bit as the oracle."""
+    srv = _server("port", [("compile", {"tick": 0})], num_shards=1, threaded=True,
+                  retry={"max_retries": 0, "bisect": False, "quarantine": False})
+    due = srv.policy.batch_size     # one home: the first flush is due here
+    for name, q in REPLAY[:due]:
+        srv.submit(name, q)
+    deadline = time.monotonic() + 30.0
+    while not srv._driver_errors and time.monotonic() < deadline:
+        time.sleep(0.001)
+    assert srv._driver_errors, "the driver never stashed the compile fault"
+    name, q = REPLAY[due]
+    with pytest.raises(tfaults.InjectedFault):
+        srv.submit(name, q)
+    assert not srv._driver_errors
+    srv.submit(name, q)
+    for name, q in REPLAY[due + 1:]:
+        srv.submit(name, q)
+    out = srv.drain()
+    assert srv.scheduler.requeues >= 1
+    for n in TABLES:
+        np.testing.assert_array_equal(_rows(out[n]), ORACLE[n])
     srv.close()
 
 

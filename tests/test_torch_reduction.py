@@ -170,3 +170,45 @@ def test_reduce_via_layout_and_oracle_match(dynamic_switch):
     ot = tred.reduce_dense_oracle(torch.from_numpy(table), ev)
     np.testing.assert_allclose(ot.numpy(), np.asarray(oj), atol=F32_TOL)
     np.testing.assert_allclose(port.numpy(), ot.numpy(), atol=1e-4)
+
+
+def _flops_bitmaps(layout, dtype, seed):
+    """Seeded 0/1 bitmaps whose tiles are all-zero, single-row or full,
+    besides random fills."""
+    rng = np.random.default_rng(seed)
+    shape = (5, 6, 3, 16) if layout == "blocked" else (7, 6, 16)
+    bm = (rng.random(shape) < rng.random(shape[:-1] + (1,))).astype(np.float32)
+    flat = bm.reshape(-1, shape[-1])
+    flat[0] = 0.0                         # all-zero (padding) tile
+    flat[1] = 0.0
+    flat[1, 3] = 1.0                      # single-row (READ) tile
+    flat[2] = 1.0                         # full tile
+    return bm.astype(jnp.bfloat16) if dtype == "bfloat16" else bm
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dynamic_switch", [True, False])
+@pytest.mark.parametrize("layout", ["flat", "blocked"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_reduction_flops_identical(layout, dynamic_switch, dtype, seed):
+    bm = _flops_bitmaps(layout, dtype, seed)
+    assert bm.dtype.name == dtype
+    ref = jred.reduction_flops(bm, 96, dynamic_switch)
+    port = tred.reduction_flops(bm, 96, dynamic_switch)
+    assert type(port) is int and port == ref
+    # The fixed tiles: the full one is always MAC; the single-row one is
+    # MAC only without the switch.
+    assert port >= (2 if not dynamic_switch else 1) * 2 * 16 * 96
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dynamic_switch", [True, False])
+def test_reduction_flops_torch_tensor(dynamic_switch, dtype):
+    """A CPU tensor, as the compile returns it, counts as its NumPy twin."""
+    (lj, _, _), (lt, _, _) = _layouts(seed=8)
+    ev = zipf_queries(512, 24, 8.0, seed=9) + [[5]]
+    cj = jred.compile_queries(lj, ev)
+    ct = tred.compile_queries(lt, ev, device="cpu", dtype=dtype)
+    ref = jred.reduction_flops(np.asarray(cj.bitmaps), 128, dynamic_switch)
+    port = tred.reduction_flops(ct.bitmaps, 128, dynamic_switch)
+    assert type(port) is int and port == ref > 0
