@@ -12,8 +12,10 @@ The emitter is deliberately dumb: callers own the unit ("rows",
 "pairs", "groups"), ticks are throttled by wall time so a tick per
 CSR block or per seed chunk costs one time() call, and the whole thing
 is a no-op object when the env var is unset so hot loops pay a single
-attribute check.  Benches surface the same per-stage wall time and
-rows/s through their JSON spreads; this knob is for interactive runs.
+attribute check.  This knob is the interactive progress line; the
+measurement of each plan stage is its span in :mod:`repro_torch.core.
+trace` (``plan.cooccurrence``, ``plan.grouping``, ``plan.replication``,
+``plan.placement``, ``plan.image``; ``RECROSS_TRACE``).
 """
 
 from __future__ import annotations

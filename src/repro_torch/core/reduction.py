@@ -30,6 +30,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from repro_torch.core import trace
 from repro_torch.core.cooccurrence import segment_ranks
 from repro_torch.core.mapping import CrossbarLayout, compile_activations
 
@@ -89,6 +90,7 @@ def _to_device(a: np.ndarray, device, dtype: torch.dtype | None = None) -> torch
     memory)."""
     t = torch.from_numpy(np.ascontiguousarray(a))
     if torch.device(device).type == "cuda":
+        trace.count("h2d_bytes", t.nbytes)
         return t.pin_memory().to(device=device, non_blocking=True).to(dtype=dtype)
     return t.to(device=device, dtype=dtype)
 
@@ -112,29 +114,31 @@ def compile_queries(
     :func:`block_compiled_queries` so replica choice is shared inside
     each block.
     """
-    acts = compile_activations(
-        layout, queries,
-        balance_replicas=balance_replicas, replica_block=replica_block,
-    )
-    batch = acts.batch
-    per_q = acts.per_query_tiles()
-    width = int(per_q.max()) if per_q.size else 1
-    max_tiles = _padded_width(width, max_tiles, "query")
+    with trace.span("compile.activations"):
+        acts = compile_activations(
+            layout, queries,
+            balance_replicas=balance_replicas, replica_block=replica_block,
+        )
+    with trace.span("compile.bitmaps"):
+        batch = acts.batch
+        per_q = acts.per_query_tiles()
+        width = int(per_q.max()) if per_q.size else 1
+        max_tiles = _padded_width(width, max_tiles, "query")
 
-    tile_ids = np.full((batch, max_tiles), -1, dtype=np.int32)
-    bitmaps = np.zeros((batch, max_tiles, layout.tile_rows), dtype=np.float32)
-    # slot position of each activation within its query (activations are
-    # (query, tile)-sorted, so the run-local rank is the position)
-    pos = segment_ranks(per_q)
-    tile_ids[acts.act_qid, pos] = acts.act_tile
-    # wordline entries inherit their activation's slot position
-    ent_pos = np.repeat(pos, acts.act_rows)
-    bitmaps[acts.ent_qid, ent_pos, acts.ent_slot] = 1.0
-    return CompiledQueries(
-        tile_ids=_to_device(tile_ids, device),
-        bitmaps=_to_device(bitmaps, device, dtype),
-        max_tiles=max_tiles,
-    )
+        tile_ids = np.full((batch, max_tiles), -1, dtype=np.int32)
+        bitmaps = np.zeros((batch, max_tiles, layout.tile_rows), dtype=np.float32)
+        # slot position of each activation within its query (activations
+        # are (query, tile)-sorted, so the run-local rank is the position)
+        pos = segment_ranks(per_q)
+        tile_ids[acts.act_qid, pos] = acts.act_tile
+        # wordline entries inherit their activation's slot position
+        ent_pos = np.repeat(pos, acts.act_rows)
+        bitmaps[acts.ent_qid, ent_pos, acts.ent_slot] = 1.0
+        return CompiledQueries(
+            tile_ids=_to_device(tile_ids, device),
+            bitmaps=_to_device(bitmaps, device, dtype),
+            max_tiles=max_tiles,
+        )
 
 
 def _pad_to_blocks(
@@ -246,6 +250,9 @@ class ShardedBlockedQueries:
     shard_widths: np.ndarray  # (P,) widest per-shard block union, pre-pad
     shards: np.ndarray | None = None  # (P,) global shard ids of the stack
     # (None = all shards in order, the full-flush compile)
+    #: (slots, single-entry slots), counted only while tracing is on
+    #: (:mod:`repro_torch.core.trace`); the dispatch credits them
+    slot_counts: tuple[int, int] | None = None
 
     @property
     def num_shards(self) -> int:
@@ -310,68 +317,82 @@ def shard_block_queries(
         if parts.min() < 0 or parts.max() >= S:
             raise ValueError(f"participants {parts} out of range for {S} shards")
         shards_field = parts
-    P = int(parts.size)
-    ids, bms, nb = _pad_to_blocks(_host(cq.tile_ids), _host(cq.bitmaps), q_block)
-    batch = cq.tile_ids.shape[0]
-    tile_rows = bms.shape[-1]
-    nb_safe = max(nb, 1)
+    with trace.span("compile.shard_block"):
+        P = int(parts.size)
+        ids, bms, nb = _pad_to_blocks(_host(cq.tile_ids), _host(cq.bitmaps), q_block)
+        batch = cq.tile_ids.shape[0]
+        tile_rows = bms.shape[-1]
+        nb_safe = max(nb, 1)
 
-    vq, vs = np.nonzero(ids >= 0)
-    vt = ids[vq, vs].astype(np.int64)
-    vblk = vq // q_block
-    shard_of_tile = np.asarray(plan.shard_of_tile)
-    own = shard_of_tile[vt].astype(np.int64)
-    # -2 is the plan's COLD sentinel (host-tier tiles, held by no shard)
-    if (own == -2).any():
-        raise ValueError(
-            "batch activates cold (host-tier) tiles; cold queries must "
-            "take the host gather+sum path, not the crossbar kernels"
+        vq, vs = np.nonzero(ids >= 0)
+        vt = ids[vq, vs].astype(np.int64)
+        vblk = vq // q_block
+        shard_of_tile = np.asarray(plan.shard_of_tile)
+        own = shard_of_tile[vt].astype(np.int64)
+        # -2 is the plan's COLD sentinel (host-tier tiles, held by no shard)
+        if (own == -2).any():
+            raise ValueError(
+                "batch activates cold (host-tier) tiles; cold queries must "
+                "take the host gather+sum path, not the crossbar kernels"
+            )
+        # replicated-everywhere tiles: block-level round robin over the
+        # participating shards
+        own = np.where(own < 0, parts[vblk % P], own)
+        # global shard id → stack position
+        part_pos = np.full(S, -1, dtype=np.int64)
+        part_pos[parts] = np.arange(P, dtype=np.int64)
+        pos_own = part_pos[own]
+        if pos_own.size and pos_own.min() < 0:
+            missing = np.unique(own[pos_own < 0]).tolist()
+            raise ValueError(
+                f"batch activates tiles owned by non-participating shards "
+                f"{missing}; participants={parts.tolist()}"
+            )
+        lt = np.asarray(plan.local_tile_of)[own, vt].astype(np.int64)
+        if lt.size and lt.min() < 0:
+            raise ValueError("plan does not hold an activated tile on its owner")
+
+        Lmax = max(int(plan.max_local_tiles), 1)
+        _check_block_key_capacity(P * nb_safe, Lmax, "shard_block_queries")
+        key = (pos_own * nb_safe + vblk) * Lmax + lt
+        uniq = np.unique(key)
+        usb = uniq // Lmax
+        ult = (uniq % Lmax).astype(np.int64)
+        us = (usb // nb_safe).astype(np.int64)
+        ub = (usb % nb_safe).astype(np.int64)
+        per_sb = np.bincount(usb, minlength=P * nb_safe)
+        width = int(per_sb.max()) if uniq.size else 0
+        max_tiles = _padded_width(width, max_tiles, "shard block")
+
+        blocked_ids = np.full((P, nb_safe, max_tiles), -1, dtype=np.int32)
+        pos_u = segment_ranks(per_sb)
+        blocked_ids[us, ub, pos_u] = ult
+        blocked_bms = np.zeros(
+            (P, nb_safe, max_tiles, q_block, tile_rows), dtype=bms.dtype
         )
-    # replicated-everywhere tiles: block-level round robin over the
-    # participating shards
-    own = np.where(own < 0, parts[vblk % P], own)
-    # global shard id → stack position
-    part_pos = np.full(S, -1, dtype=np.int64)
-    part_pos[parts] = np.arange(P, dtype=np.int64)
-    pos_own = part_pos[own]
-    if pos_own.size and pos_own.min() < 0:
-        missing = np.unique(own[pos_own < 0]).tolist()
-        raise ValueError(
-            f"batch activates tiles owned by non-participating shards "
-            f"{missing}; participants={parts.tolist()}"
-        )
-    lt = np.asarray(plan.local_tile_of)[own, vt].astype(np.int64)
-    if lt.size and lt.min() < 0:
-        raise ValueError("plan does not hold an activated tile on its owner")
-
-    Lmax = max(int(plan.max_local_tiles), 1)
-    _check_block_key_capacity(P * nb_safe, Lmax, "shard_block_queries")
-    key = (pos_own * nb_safe + vblk) * Lmax + lt
-    uniq = np.unique(key)
-    usb = uniq // Lmax
-    ult = (uniq % Lmax).astype(np.int64)
-    us = (usb // nb_safe).astype(np.int64)
-    ub = (usb % nb_safe).astype(np.int64)
-    per_sb = np.bincount(usb, minlength=P * nb_safe)
-    width = int(per_sb.max()) if uniq.size else 0
-    max_tiles = _padded_width(width, max_tiles, "shard block")
-
-    blocked_ids = np.full((P, nb_safe, max_tiles), -1, dtype=np.int32)
-    pos_u = segment_ranks(per_sb)
-    blocked_ids[us, ub, pos_u] = ult
-    blocked_bms = np.zeros(
-        (P, nb_safe, max_tiles, q_block, tile_rows), dtype=bms.dtype
-    )
-    pos_entry = pos_u[np.searchsorted(uniq, key)]
-    blocked_bms[pos_own, vblk, pos_entry, vq % q_block] = bms[vq, vs]
-    widths = per_sb.reshape(P, nb_safe).max(axis=1) if uniq.size else np.zeros(P, np.int64)
+        slot = np.searchsorted(uniq, key)
+        pos_entry = pos_u[slot]
+        entries = bms[vq, vs]
+        blocked_bms[pos_own, vblk, pos_entry, vq % q_block] = entries
+        widths = per_sb.reshape(P, nb_safe).max(axis=1) if uniq.size else np.zeros(P, np.int64)
+        slot_counts = None
+        if trace.enabled():
+            # the kernel's READ rule: at most one nonzero entry in the
+            # slot (a 0/1 mask's row sum is its count of nonzeros)
+            held = np.bincount(slot, weights=entries @ np.ones(tile_rows, np.float32),
+                               minlength=uniq.size)
+            slot_counts = (int(uniq.size), int((held <= 1).sum()))
+    with trace.span("compile.upload"):
+        tile_ids = _to_device(blocked_ids, device)
+        bitmaps = _to_device(blocked_bms, device, dtype)
     return ShardedBlockedQueries(
-        tile_ids=_to_device(blocked_ids, device),
-        bitmaps=_to_device(blocked_bms, device, dtype),
+        tile_ids=tile_ids,
+        bitmaps=bitmaps,
         q_block=q_block,
         batch=batch,
         shard_widths=widths.astype(np.int64),
         shards=shards_field,
+        slot_counts=slot_counts,
     )
 
 

@@ -122,6 +122,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import trace
 from repro_torch.core.cooccurrence import build_cooccurrence
 from repro_torch.core.grouping import correlation_aware_grouping
 from repro_torch.core.mapping import build_layout
@@ -566,10 +567,13 @@ class ShardedEmbeddingServer:
         dims = set()
         for name in self.names:
             table = host[name]
-            graph = build_cooccurrence(histories[name], table.shape[0])
-            grouping = correlation_aware_grouping(graph, group_size)
-            plan = plan_replication(grouping, graph.freq, eq1_batch)
-            self.layouts.append(build_layout(grouping, plan, table.shape[1]))
+            with trace.span("plan.cooccurrence"):
+                graph = build_cooccurrence(histories[name], table.shape[0])
+            with trace.span("plan.grouping"):
+                grouping = correlation_aware_grouping(graph, group_size)
+            with trace.span("plan.replication"):
+                plan = plan_replication(grouping, graph.freq, eq1_batch)
+                self.layouts.append(build_layout(grouping, plan, table.shape[1]))
             plans.append(plan)
             gfreqs.append(grouping.group_freq(graph.freq))
             dims.add(table.shape[1])
@@ -581,51 +585,53 @@ class ShardedEmbeddingServer:
             # paging rides the drift tracker
             replan = ReplanConfig()
         self._capacity_tiles: Optional[int] = None
-        if tiers is not None:
-            # the budget is a fraction of what an UNCAPPED plan of the
-            # same tables needs per shard
-            uncapped = plan_shards(
-                self.layouts, plans, num_shards, names=self.names,
-                group_freqs=gfreqs,
+        with trace.span("plan.placement"):
+            if tiers is not None:
+                # the budget is a fraction of what an UNCAPPED plan of the
+                # same tables needs per shard
+                uncapped = plan_shards(
+                    self.layouts, plans, num_shards, names=self.names,
+                    group_freqs=gfreqs,
+                )
+                self._capacity_tiles = tiers.resolve_capacity(uncapped.max_local_tiles)
+                del uncapped
+            self.plan: ShardPlan = plan_shards(
+                self.layouts, plans, num_shards, names=self.names, group_freqs=gfreqs,
+                capacity_tiles=self._capacity_tiles,
             )
-            self._capacity_tiles = tiers.resolve_capacity(uncapped.max_local_tiles)
-            del uncapped
-        self.plan: ShardPlan = plan_shards(
-            self.layouts, plans, num_shards, names=self.names, group_freqs=gfreqs,
-            capacity_tiles=self._capacity_tiles,
-        )
-        fused = build_fused_image(self.layouts, [host[n] for n in self.names])
-        images = self.plan.build_shard_images(fused)
-        if self._capacity_tiles is not None:
-            # the hot tier is FIXED at its budget: every free slot is
-            # fetchable from the start
-            extra = self._capacity_tiles - images.shape[1]
-            if extra > 0:
+        with trace.span("plan.image"):
+            fused = build_fused_image(self.layouts, [host[n] for n in self.names])
+            images = self.plan.build_shard_images(fused)
+            if self._capacity_tiles is not None:
+                # the hot tier is FIXED at its budget: every free slot is
+                # fetchable from the start
+                extra = self._capacity_tiles - images.shape[1]
+                if extra > 0:
+                    pad = np.zeros(
+                        (num_shards, extra) + images.shape[2:], dtype=images.dtype
+                    )
+                    images = np.concatenate([images, pad], axis=1)
+            elif replan is not None and replan.slack_tiles > 0:
+                # zero-tile headroom so early promotions fill slack instead
+                # of growing (reallocating) the image stack on the device
                 pad = np.zeros(
-                    (num_shards, extra) + images.shape[2:], dtype=images.dtype
+                    (num_shards, replan.slack_tiles) + images.shape[2:],
+                    dtype=images.dtype,
                 )
                 images = np.concatenate([images, pad], axis=1)
-        elif replan is not None and replan.slack_tiles > 0:
-            # zero-tile headroom so early promotions fill slack instead
-            # of growing (reallocating) the image stack on the device
-            pad = np.zeros(
-                (num_shards, replan.slack_tiles) + images.shape[2:],
-                dtype=images.dtype,
-            )
-            images = np.concatenate([images, pad], axis=1)
-        #: (num_shards, capacity, tile_rows, dim) on the device, or this
-        #: rank's shard (1, ...) under a mesh; replaced only when a plan
-        #: patch grows or shrinks its depth
-        if mesh is None:
-            self.shard_images = torch.from_numpy(images).to(
-                device=self.device, dtype=self.dtype
-            )
-        else:
-            # each rank receives its shard once, here, outside any timed
-            # window; rank 0 keeps shard 0
-            with self._mesh_ops():
-                self._send_header(_OP_IMAGE)
-                self.shard_images = distribute_shard_images(images, mesh, self.dtype)
+            #: (num_shards, capacity, tile_rows, dim) on the device, or this
+            #: rank's shard (1, ...) under a mesh; replaced only when a plan
+            #: patch grows or shrinks its depth
+            if mesh is None:
+                self.shard_images = torch.from_numpy(images).to(
+                    device=self.device, dtype=self.dtype
+                )
+            else:
+                # each rank receives its shard once, here, outside any timed
+                # window; rank 0 keeps shard 0
+                with self._mesh_ops():
+                    self._send_header(_OP_IMAGE)
+                    self.shard_images = distribute_shard_images(images, mesh, self.dtype)
         del images
         # ---- online replanning state (DESIGN.md §6) ----
         self.replan_cfg = replan
@@ -748,6 +754,8 @@ class ShardedEmbeddingServer:
         # lock order (DESIGN.md §5): 2nd — after engine, before stamp
         self._results_lock = threading.Lock()
         self._closed = False
+        #: synchronous requests served: the trace's request number
+        self._requests = 0
         # submits past the stamp but not yet delivered — the seq-reset
         # guard and close()'s drain loop both key off this being zero
         self._pending_submits = 0
@@ -802,6 +810,14 @@ class ShardedEmbeddingServer:
         Raises:
           KeyError: a key names an unknown table.
         """
+        self._requests += 1
+        with trace.span("serve.request", self._requests):
+            return self._serve(queries_by_table)
+
+    def _serve(
+        self, queries_by_table: Dict[str, Sequence[Sequence[int]]]
+    ) -> Dict[str, torch.Tensor]:
+        """:meth:`serve`'s request, inside its span."""
         t0 = time.perf_counter()
         unknown = set(queries_by_table) - set(self.names)
         if unknown:
@@ -852,12 +868,15 @@ class ShardedEmbeddingServer:
         outs, sbq, event = [], None, None
         if served_dev:
             with self._on_stream():
-                tc = time.perf_counter()
-                host_cq, sbq, spans = self._compile_batch(
-                    served_dev, {n: hot_of[n] for n in served_dev}
-                )
+                with trace.span("serve.compile") as compiling:
+                    tc = time.perf_counter()
+                    host_cq, sbq, spans = self._compile_batch(
+                        served_dev, {n: hot_of[n] for n in served_dev}
+                    )
+                    compile_s = time.perf_counter() - tc
+                    compiling.record(compile_s)
                 # a synchronous compile sits on the serving critical path
-                self.stats.record_compile(time.perf_counter() - tc, hidden=False)
+                self.stats.record_compile(compile_s, hidden=False)
                 outs = self._reduce(sbq, spans)
                 event = self._record_event()
             # the kernels are dispatched but not waited for: the drift
@@ -871,7 +890,8 @@ class ShardedEmbeddingServer:
         if cold_of:
             out.update(self._assemble(queries_of, cold_of, out))
         if event is not None:
-            event.synchronize()
+            with trace.span("serve.wait"):
+                event.synchronize()
         if sbq is not None:
             self.stats.record(sbq, self.dim, time.perf_counter() - t0, n_hot)
         return out
@@ -924,15 +944,18 @@ class ShardedEmbeddingServer:
         Returns ``(host_cq, sbq, spans)``: ``host_cq`` is the fused
         compile on the CPU, which the drift observation reads.
         """
-        cqs = []
-        for name in served:
-            i = self.names.index(name)
-            cq = compile_queries(
+        tables = [self.names.index(name) for name in served]
+        cqs = [
+            compile_queries(
                 self.layouts[i], queries_of[name],
                 replica_block=self.q_block, dtype=self.dtype, device="cpu",
             )
-            cqs.append(offset_compiled_queries(cq, self.plan.tables[i].tile_offset))
-        fused_cq, spans = concat_compiled_queries(cqs, self.q_block)
+            for i, name in zip(tables, served)
+        ]
+        with trace.span("compile.concat"):
+            cqs = [offset_compiled_queries(cq, self.plan.tables[i].tile_offset)
+                   for i, cq in zip(tables, cqs)]
+            fused_cq, spans = concat_compiled_queries(cqs, self.q_block)
         sbq = shard_block_queries(
             fused_cq, self.plan, self.q_block, participants=participants,
             device="cpu" if self.mesh is not None else self.device,
@@ -943,15 +966,21 @@ class ShardedEmbeddingServer:
 
     def _reduce(self, sbq, spans) -> List[torch.Tensor]:
         """Dispatches one compiled batch's kernels and combine: in
-        program when emulated, else across the mesh (:meth:`_reduce_mesh`)."""
-        if self.mesh is None:
-            return crossbar_reduce_tables(
-                self.shard_images, sbq, spans,
-                combine_chunks=self.combine_chunks,
-                dynamic_switch=self.dynamic_switch,
-            )
-        with self._mesh_ops():
-            return self._reduce_mesh(sbq, spans)
+        program when emulated, else across the mesh (:meth:`_reduce_mesh`).
+        Credits the batch's slot counts to the trace, where it has them."""
+        with trace.span("serve.dispatch"):
+            if sbq.slot_counts is not None:
+                slots, single = sbq.slot_counts
+                trace.count("slots", slots)
+                trace.count("read_slots", single if self.dynamic_switch else 0)
+            if self.mesh is None:
+                return crossbar_reduce_tables(
+                    self.shard_images, sbq, spans,
+                    combine_chunks=self.combine_chunks,
+                    dynamic_switch=self.dynamic_switch,
+                )
+            with self._mesh_ops():
+                return self._reduce_mesh(sbq, spans)
 
     def _send_header(self, op: int, *values: int) -> None:
         """Broadcasts one control header to the workers (rank 0 only)."""

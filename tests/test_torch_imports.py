@@ -66,7 +66,8 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
                 "repro_torch.dist.pipeline_parallel", "repro_torch.launch.mesh",
                 "repro_torch.launch.dryrun", "repro_torch.launch.elastic_restart",
                 "repro_torch.launch.mesh_comms", "repro_torch.launch.analytic",
-                "repro_torch.launch.roofline", "repro_torch.launch.report"):
+                "repro_torch.launch.roofline", "repro_torch.launch.report",
+                "repro_torch.core.trace"):
         assert mod in res["modules"]
 
 
