@@ -1261,7 +1261,7 @@ def busy_stream_dispatch(torch, server, dispatch, order, rows_global, *,
         t0 = time.perf_counter()
         entry = dispatch(entries, None)
         if observe:
-            server._observe_and_stage(entry.host_cq, entry.n_queries)
+            server._observe_and_stage(entry.host_acts, entry.n_queries)
         returned_ms = (time.perf_counter() - t0) * 1e3
         pending = not entry.event.query()
         entry.event.synchronize()
@@ -1412,9 +1412,9 @@ def phase_serving_replan(torch, np, timer, tables, histories, served, async_stat
     observe = server._observe_and_stage
     obs_s = []
 
-    def timed_observe(host_cq, n_queries):
+    def timed_observe(host_acts, n_queries):
         t = time.perf_counter()
-        observe(host_cq, n_queries)
+        observe(host_acts, n_queries)
         obs_s.append(time.perf_counter() - t)
 
     server._apply_staged_patch = timed_apply
@@ -1440,8 +1440,8 @@ def phase_serving_replan(torch, np, timer, tables, histories, served, async_stat
                           device_timed("scatter", sharded_mod.scatter_patch_tiles)),
         mock.patch.object(server_mod, "apply_plan_patch",
                           host_timed("plan_apply_s", server_mod.apply_plan_patch)),
-        mock.patch.object(drift_mod, "fused_group_loads",
-                          host_timed("loads_s", drift_mod.fused_group_loads)),
+        mock.patch.object(drift_mod, "activation_group_loads",
+                          host_timed("loads_s", drift_mod.activation_group_loads)),
         mock.patch.object(drift_mod.LoadObservationCache, "_key", staticmethod(
             host_timed("digest_s", drift_mod.LoadObservationCache._key))),
     )

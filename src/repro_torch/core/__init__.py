@@ -21,7 +21,9 @@ from repro_torch.core.reduction import (
     BlockUnionTracker,
     BlockedQueries,
     CompiledQueries,
+    FusedActivations,
     ShardedBlockedQueries,
+    activation_group_loads,
     block_compiled_queries,
     compile_queries,
     concat_compiled_queries,
@@ -29,6 +31,8 @@ from repro_torch.core.reduction import (
     offset_compiled_queries,
     reduce_dense_oracle,
     reduce_via_layout,
+    ZeroedBitmaps,
+    shard_block_activations,
     shard_block_queries,
 )
 from repro_torch.core.dynamic_switch import (
@@ -58,6 +62,8 @@ __all__ = [
     "ShardedBlockedQueries", "block_compiled_queries", "compile_queries",
     "concat_compiled_queries", "fused_group_loads", "offset_compiled_queries",
     "reduce_dense_oracle", "reduce_via_layout", "shard_block_queries",
+    "FusedActivations", "ZeroedBitmaps", "activation_group_loads",
+    "shard_block_activations",
     "READ_MODE", "MAC_MODE", "popcount", "select_mode", "torch_select_mode",
     "energy_breakeven_rows", "mode_statistics",
     "ReRAMCostModel", "DEFAULT_RERAM", "H100CostModel", "DEFAULT_H100",

@@ -19,7 +19,10 @@ Queries arrive in the compiled query format (fixed shapes):
 The compile itself is host NumPy; the data classes carry torch tensors
 on the device the caller names.  Bitmaps keep the image's dtype (a bf16
 image gets bf16 bitmaps); 0/1 values are exact in every float dtype, so
-the host work runs on float32 copies.
+the host work runs on float32 copies.  The server's path,
+:func:`shard_block_activations`, builds no dense bitmap on the host: it
+sends the ones' flat indices and sets them on the device, in a bitmap
+buffer kept zeroed between batches (:class:`ZeroedBitmaps`).
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ import torch
 
 from repro_torch.core import trace
 from repro_torch.core.cooccurrence import segment_ranks
-from repro_torch.core.mapping import CrossbarLayout, compile_activations
+from repro_torch.core.mapping import ActivationSet, CrossbarLayout, compile_activations
 
 
 @dataclasses.dataclass
@@ -241,6 +244,11 @@ class ShardedBlockedQueries:
     shard-local tile unions.  An activation (query, tile) is owned by
     exactly one shard, so summing the shards' kernel outputs reproduces
     the single-device blocked reduction exactly once per activation.
+
+    Built by :func:`shard_block_queries` from a dense fused compile, or,
+    on the server's path, by :func:`shard_block_activations` from the
+    sparse activation sets, with the bitmaps expanded on their device;
+    both give the same fields bit for bit.
     """
 
     tile_ids: torch.Tensor   # (P, nb, max_tiles) int32 shard-LOCAL ids, -1 pad
@@ -278,6 +286,112 @@ class ShardedBlockedQueries:
         return self.num_blocks * self.max_tiles
 
 
+@dataclasses.dataclass
+class FusedActivations:
+    """A batch's activations in the fused tile space, on the host: the
+    sparse form the server's drift observation reads (one entry per
+    (query, tile) activation, in the dense compile's slot order)."""
+
+    tile_ids: np.ndarray  # (A,) int64 fused tile ids
+    rows: np.ndarray      # (A,) int64 active wordlines (popcount) of each
+
+    @classmethod
+    def of(cls, acts: Sequence[ActivationSet], tile_offsets: Sequence[int]) -> "FusedActivations":
+        """Per-table activation sets rebased by their tile offsets."""
+        return cls(
+            tile_ids=np.concatenate([a.act_tile + int(o) for a, o in zip(acts, tile_offsets)]),
+            rows=np.concatenate([a.act_rows for a in acts]),
+        )
+
+
+def _participant_stack(plan, participants) -> tuple[np.ndarray, np.ndarray | None]:
+    """The stacked shards of a compile and its ``shards`` field: every
+    shard in order (``None``), or the given non-empty unique subset."""
+    S = int(plan.num_shards)
+    if participants is None:
+        return np.arange(S, dtype=np.int64), None
+    parts = np.asarray(list(participants), dtype=np.int64)
+    if parts.size == 0 or parts.size != np.unique(parts).size:
+        raise ValueError(f"participants must be non-empty unique ids, got {parts}")
+    if parts.min() < 0 or parts.max() >= S:
+        raise ValueError(f"participants {parts} out of range for {S} shards")
+    return parts, parts
+
+
+@dataclasses.dataclass
+class _ShardUnion:
+    """Each activation's owner and slot in the per-shard blocked grid."""
+
+    pos_own: np.ndarray      # (A,) stack position of the owning shard
+    slot: np.ndarray         # (A,) index into the union
+    pos_entry: np.ndarray    # (A,) tile slot within its (shard, block)
+    blocked_ids: np.ndarray  # (P, nb_safe, max_tiles) int32 local ids, -1 pad
+    widths: np.ndarray       # (P,) widest block union, pre-pad
+    num_slots: int           # non-padding (shard, block, tile) slots
+
+
+def _shard_union(plan, parts, vt, vblk, nb_safe: int, max_tiles: int | None) -> _ShardUnion:
+    """Activations ``(fused tile vt, block vblk)`` → owner shards and the
+    per-(shard, block) deduplicated tile unions.
+
+    Replicated-everywhere tiles go round-robin by block over ``parts``;
+    a cold (host-tier) tile, a tile owned outside ``parts`` or one its
+    owner does not hold raises ``ValueError``.
+    """
+    S, P = int(plan.num_shards), int(parts.size)
+    own = np.asarray(plan.shard_of_tile)[vt].astype(np.int64)
+    # -2 is the plan's COLD sentinel (host-tier tiles, held by no shard)
+    if (own == -2).any():
+        raise ValueError(
+            "batch activates cold (host-tier) tiles; cold queries must "
+            "take the host gather+sum path, not the crossbar kernels"
+        )
+    # replicated-everywhere tiles: block-level round robin over the
+    # participating shards
+    own = np.where(own < 0, parts[vblk % P], own)
+    # global shard id → stack position
+    part_pos = np.full(S, -1, dtype=np.int64)
+    part_pos[parts] = np.arange(P, dtype=np.int64)
+    pos_own = part_pos[own]
+    if pos_own.size and pos_own.min() < 0:
+        missing = np.unique(own[pos_own < 0]).tolist()
+        raise ValueError(
+            f"batch activates tiles owned by non-participating shards "
+            f"{missing}; participants={parts.tolist()}"
+        )
+    lt = np.asarray(plan.local_tile_of)[own, vt].astype(np.int64)
+    if lt.size and lt.min() < 0:
+        raise ValueError("plan does not hold an activated tile on its owner")
+
+    Lmax = max(int(plan.max_local_tiles), 1)
+    _check_block_key_capacity(P * nb_safe, Lmax, "shard_block_queries")
+    key = (pos_own * nb_safe + vblk) * Lmax + lt
+    uniq = np.unique(key)
+    usb = uniq // Lmax
+    ult = (uniq % Lmax).astype(np.int64)
+    us = (usb // nb_safe).astype(np.int64)
+    ub = (usb % nb_safe).astype(np.int64)
+    per_sb = np.bincount(usb, minlength=P * nb_safe)
+    width = int(per_sb.max()) if uniq.size else 0
+    max_tiles = _padded_width(width, max_tiles, "shard block")
+
+    blocked_ids = np.full((P, nb_safe, max_tiles), -1, dtype=np.int32)
+    pos_u = segment_ranks(per_sb)
+    blocked_ids[us, ub, pos_u] = ult
+    slot = np.searchsorted(uniq, key)
+    widths = per_sb.reshape(P, nb_safe).max(axis=1) if uniq.size else np.zeros(P, np.int64)
+    return _ShardUnion(pos_own=pos_own, slot=slot, pos_entry=pos_u[slot],
+                       blocked_ids=blocked_ids, widths=widths.astype(np.int64),
+                       num_slots=int(uniq.size))
+
+
+def _slot_counts(union: _ShardUnion, popcounts: np.ndarray) -> tuple[int, int]:
+    """(slots, single-entry slots): the kernel's READ rule, at most one
+    nonzero entry in the slot, from each activation's popcount."""
+    held = np.bincount(union.slot, weights=popcounts, minlength=union.num_slots)
+    return union.num_slots, int((held <= 1).sum())
+
+
 def shard_block_queries(
     cq: CompiledQueries,
     plan,
@@ -301,22 +415,14 @@ def shard_block_queries(
     replicated-everywhere tiles round-robin over the participants.  Every
     sharded-once tile the batch activates must be owned by a participant.
     The result lands on ``device`` (default: ``cq``'s device).
+    :func:`shard_block_activations` builds the same batch from the
+    sparse activation sets, with no dense host bitmap.
     """
     if q_block < 1:
         raise ValueError("q_block must be >= 1")
     device = cq.tile_ids.device if device is None else device
     dtype = cq.bitmaps.dtype
-    S = int(plan.num_shards)
-    if participants is None:
-        parts = np.arange(S, dtype=np.int64)
-        shards_field = None
-    else:
-        parts = np.asarray(list(participants), dtype=np.int64)
-        if parts.size == 0 or parts.size != np.unique(parts).size:
-            raise ValueError(f"participants must be non-empty unique ids, got {parts}")
-        if parts.min() < 0 or parts.max() >= S:
-            raise ValueError(f"participants {parts} out of range for {S} shards")
-        shards_field = parts
+    parts, shards_field = _participant_stack(plan, participants)
     with trace.span("compile.shard_block"):
         P = int(parts.size)
         ids, bms, nb = _pad_to_blocks(_host(cq.tile_ids), _host(cq.bitmaps), q_block)
@@ -327,73 +433,157 @@ def shard_block_queries(
         vq, vs = np.nonzero(ids >= 0)
         vt = ids[vq, vs].astype(np.int64)
         vblk = vq // q_block
-        shard_of_tile = np.asarray(plan.shard_of_tile)
-        own = shard_of_tile[vt].astype(np.int64)
-        # -2 is the plan's COLD sentinel (host-tier tiles, held by no shard)
-        if (own == -2).any():
-            raise ValueError(
-                "batch activates cold (host-tier) tiles; cold queries must "
-                "take the host gather+sum path, not the crossbar kernels"
-            )
-        # replicated-everywhere tiles: block-level round robin over the
-        # participating shards
-        own = np.where(own < 0, parts[vblk % P], own)
-        # global shard id → stack position
-        part_pos = np.full(S, -1, dtype=np.int64)
-        part_pos[parts] = np.arange(P, dtype=np.int64)
-        pos_own = part_pos[own]
-        if pos_own.size and pos_own.min() < 0:
-            missing = np.unique(own[pos_own < 0]).tolist()
-            raise ValueError(
-                f"batch activates tiles owned by non-participating shards "
-                f"{missing}; participants={parts.tolist()}"
-            )
-        lt = np.asarray(plan.local_tile_of)[own, vt].astype(np.int64)
-        if lt.size and lt.min() < 0:
-            raise ValueError("plan does not hold an activated tile on its owner")
-
-        Lmax = max(int(plan.max_local_tiles), 1)
-        _check_block_key_capacity(P * nb_safe, Lmax, "shard_block_queries")
-        key = (pos_own * nb_safe + vblk) * Lmax + lt
-        uniq = np.unique(key)
-        usb = uniq // Lmax
-        ult = (uniq % Lmax).astype(np.int64)
-        us = (usb // nb_safe).astype(np.int64)
-        ub = (usb % nb_safe).astype(np.int64)
-        per_sb = np.bincount(usb, minlength=P * nb_safe)
-        width = int(per_sb.max()) if uniq.size else 0
-        max_tiles = _padded_width(width, max_tiles, "shard block")
-
-        blocked_ids = np.full((P, nb_safe, max_tiles), -1, dtype=np.int32)
-        pos_u = segment_ranks(per_sb)
-        blocked_ids[us, ub, pos_u] = ult
+        union = _shard_union(plan, parts, vt, vblk, nb_safe, max_tiles)
         blocked_bms = np.zeros(
-            (P, nb_safe, max_tiles, q_block, tile_rows), dtype=bms.dtype
+            (P, *union.blocked_ids.shape[1:], q_block, tile_rows), dtype=bms.dtype
         )
-        slot = np.searchsorted(uniq, key)
-        pos_entry = pos_u[slot]
         entries = bms[vq, vs]
-        blocked_bms[pos_own, vblk, pos_entry, vq % q_block] = entries
-        widths = per_sb.reshape(P, nb_safe).max(axis=1) if uniq.size else np.zeros(P, np.int64)
+        blocked_bms[union.pos_own, vblk, union.pos_entry, vq % q_block] = entries
         slot_counts = None
         if trace.enabled():
-            # the kernel's READ rule: at most one nonzero entry in the
-            # slot (a 0/1 mask's row sum is its count of nonzeros)
-            held = np.bincount(slot, weights=entries @ np.ones(tile_rows, np.float32),
-                               minlength=uniq.size)
-            slot_counts = (int(uniq.size), int((held <= 1).sum()))
+            # a 0/1 mask's row sum is its count of nonzeros
+            slot_counts = _slot_counts(union, entries @ np.ones(tile_rows, np.float32))
     with trace.span("compile.upload"):
-        tile_ids = _to_device(blocked_ids, device)
+        tile_ids = _to_device(union.blocked_ids, device)
         bitmaps = _to_device(blocked_bms, device, dtype)
     return ShardedBlockedQueries(
         tile_ids=tile_ids,
         bitmaps=bitmaps,
         q_block=q_block,
         batch=batch,
-        shard_widths=widths.astype(np.int64),
+        shard_widths=union.widths,
         shards=shards_field,
         slot_counts=slot_counts,
     )
+
+
+class ZeroedBitmaps:
+    """A flat bitmap buffer kept zeroed between batches, so that a batch's
+    ``(P, nb, max_tiles, q_block, tile_rows)`` bitmap costs the setting of
+    its ones and not a zero fill of the whole grid just ahead of the
+    kernel that reads it.
+
+    :meth:`take` clears the previous batch's ones by the same indices,
+    then sets this batch's, both on the current stream: the previous
+    batch's kernels were queued there before this batch was compiled, so
+    they read their bitmap before it is cleared.  A bitmap is a view of
+    the buffer, valid until the next :meth:`take`.  One buffer serves one
+    stream and one batch compiled and dispatched at a time, as the server
+    compiles and dispatches its batches.  The buffer grows to the largest
+    bitmap it has held; a new dtype or device starts a new one.
+    """
+
+    def __init__(self) -> None:
+        self._flat: torch.Tensor | None = None
+        self._ones: torch.Tensor | None = None
+
+    def take(self, shape: tuple[int, ...], ones: torch.Tensor,
+             dtype: torch.dtype) -> torch.Tensor:
+        """A ``shape`` bitmap of ``dtype``, on ``ones``' device, that is 1
+        at the flat int64 indices ``ones`` and 0 elsewhere."""
+        numel = int(np.prod(shape, dtype=np.int64))
+        flat = self._flat
+        if (flat is None or flat.numel() < numel or flat.dtype != dtype
+                or flat.device != ones.device):
+            flat = self._flat = torch.zeros(numel, dtype=dtype, device=ones.device)
+        elif self._ones is not None:
+            flat.index_fill_(0, self._ones, 0)
+        flat.index_fill_(0, ones, 1)
+        self._ones = ones
+        return flat[:numel].view(shape)
+
+
+def _flat_index_dtype(numel: int) -> np.dtype:
+    """The flat indices of a bitmap of ``numel`` elements: int32 below
+    2**31 elements, else int64."""
+    return np.dtype(np.int64 if numel >= 1 << 31 else np.int32)
+
+
+def shard_block_activations(
+    acts: Sequence[ActivationSet],
+    tile_offsets: Sequence[int],
+    plan,
+    q_block: int,
+    *,
+    max_tiles: int | None = None,
+    participants: Sequence[int] | None = None,
+    device="cuda",
+    dtype: torch.dtype = torch.float32,
+    fused: FusedActivations | None = None,
+    bitmaps: ZeroedBitmaps | None = None,
+) -> tuple[ShardedBlockedQueries, list[tuple[int, int]]]:
+    """Per-table activation sets → per-shard blocked batch for ``plan``,
+    with no dense bitmap on the host.
+
+    ``acts[t]`` is table ``t``'s :func:`~repro_torch.core.mapping.
+    compile_activations` with ``replica_block=q_block``, and
+    ``tile_offsets[t]`` its first tile in the plan's fused tile space.
+    The result equals, field by field and bit for bit, that of
+    :func:`compile_queries` → :func:`offset_compiled_queries` →
+    :func:`concat_compiled_queries` → :func:`shard_block_queries` on the
+    same queries, and so do the per-table ``(row_start, batch)`` spans
+    returned beside it; ``participants`` and the errors are
+    :func:`shard_block_queries`'.
+
+    Each table's query ids are rebased to its row start (tables padded to
+    ``q_block`` multiples) and its tile ids by its offset; the union and
+    slot ranks are :func:`shard_block_queries`' own.  Only the
+    ``(P, nb, max_tiles)`` tile ids and each wordline entry's flat index
+    into the ``(P, nb, max_tiles, q_block, tile_rows)`` bitmap cross to
+    ``device``, in one copy; there the ones are set by index, on the
+    current stream, in a bitmap of ``dtype`` taken from ``bitmaps`` (a
+    buffer kept zeroed between batches) or, without one, zeroed anew.
+    ``fused`` is ``FusedActivations.of(acts, tile_offsets)`` where the
+    caller has built it already.
+    """
+    if q_block < 1:
+        raise ValueError("q_block must be >= 1")
+    if not acts or len(acts) != len(tile_offsets):
+        raise ValueError("need one tile offset for each of at least one activation set")
+    tile_rows = acts[0].tile_rows
+    if any(a.tile_rows != tile_rows for a in acts):
+        raise ValueError("activation sets of one batch must share tile_rows")
+    parts, shards_field = _participant_stack(plan, participants)
+    with trace.span("compile.shard_block"):
+        spans, starts, row = [], [], 0
+        for a in acts:
+            spans.append((row, a.batch))
+            starts.append(row)
+            row += -(-a.batch // q_block) * q_block
+        vq = np.concatenate([a.act_qid + r for a, r in zip(acts, starts)])
+        if fused is None:
+            fused = FusedActivations.of(acts, tile_offsets)
+        vt, popcounts = fused.tile_ids, fused.rows
+        ent_slot = np.concatenate([a.ent_slot for a in acts])
+        nb_safe = max(row // q_block, 1)
+        vblk = vq // q_block
+        union = _shard_union(plan, parts, vt, vblk, nb_safe, max_tiles)
+        shape = (*union.blocked_ids.shape, q_block, tile_rows)
+        # each activation's first element, then its wordline entries
+        base = ((((union.pos_own * nb_safe + vblk) * shape[2] + union.pos_entry)
+                 * q_block + vq % q_block) * tile_rows)
+        flat = np.repeat(base, popcounts) + ent_slot
+        slot_counts = _slot_counts(union, popcounts) if trace.enabled() else None
+    with trace.span("compile.upload"):
+        index = _flat_index_dtype(int(np.prod(shape, dtype=np.int64)))
+        n_ids = union.blocked_ids.size
+        packed = _to_device(
+            np.concatenate([union.blocked_ids.ravel().astype(index), flat.astype(index)]),
+            device,
+        )
+        tile_ids = packed[:n_ids].view(shape[:3]).to(torch.int32)
+        bms = (bitmaps or ZeroedBitmaps()).take(shape, packed[n_ids:].long(), dtype)
+        if torch.device(device).type == "cuda":
+            trace.count("expand_entries", flat.size)
+    return ShardedBlockedQueries(
+        tile_ids=tile_ids,
+        bitmaps=bms,
+        q_block=q_block,
+        batch=row,
+        shard_widths=union.widths,
+        shards=shards_field,
+        slot_counts=slot_counts,
+    ), spans
 
 
 class BlockUnionTracker:
@@ -496,6 +686,19 @@ def fused_group_loads(
     return np.bincount(groups, weights=rows, minlength=num_groups).astype(np.float64)
 
 
+def activation_group_loads(
+    acts: FusedActivations, tile_group: np.ndarray, num_groups: int
+) -> np.ndarray:
+    """:func:`fused_group_loads` of the sparse form: equal to it on the
+    dense compile of the same batch, exactly (popcounts are integers).
+
+    Returns:
+      ``(G,)`` float64 active-row counts.
+    """
+    groups = np.asarray(tile_group)[acts.tile_ids]
+    return np.bincount(groups, weights=acts.rows, minlength=num_groups).astype(np.float64)
+
+
 def offset_compiled_queries(cq: CompiledQueries, tile_offset: int) -> CompiledQueries:
     """Rebases a per-table compile into the fused multi-table tile space."""
     ids = cq.tile_ids
@@ -523,27 +726,28 @@ def concat_compiled_queries(
         raise ValueError("q_block must be >= 1")
     if not cqs:
         raise ValueError("need at least one compiled batch")
-    width = max(cq.max_tiles for cq in cqs)
-    ids_parts, bms_parts, spans = [], [], []
-    row = 0
-    for cq in cqs:
-        ids, bms = cq.tile_ids, cq.bitmaps
-        batch, s_flat = ids.shape
-        rows = -(-batch // q_block) * q_block if batch else 0
-        tile_rows = bms.shape[-1]
-        pid = ids.new_full((rows, width), -1)
-        pbm = bms.new_zeros((rows, width, tile_rows))
-        pid[:batch, :s_flat] = ids
-        pbm[:batch, :s_flat] = bms
-        ids_parts.append(pid)
-        bms_parts.append(pbm)
-        spans.append((row, batch))
-        row += rows
-    fused = CompiledQueries(
-        tile_ids=torch.cat(ids_parts),
-        bitmaps=torch.cat(bms_parts),
-        max_tiles=width,
-    )
+    with trace.span("compile.concat"):
+        width = max(cq.max_tiles for cq in cqs)
+        ids_parts, bms_parts, spans = [], [], []
+        row = 0
+        for cq in cqs:
+            ids, bms = cq.tile_ids, cq.bitmaps
+            batch, s_flat = ids.shape
+            rows = -(-batch // q_block) * q_block if batch else 0
+            tile_rows = bms.shape[-1]
+            pid = ids.new_full((rows, width), -1)
+            pbm = bms.new_zeros((rows, width, tile_rows))
+            pid[:batch, :s_flat] = ids
+            pbm[:batch, :s_flat] = bms
+            ids_parts.append(pid)
+            bms_parts.append(pbm)
+            spans.append((row, batch))
+            row += rows
+        fused = CompiledQueries(
+            tile_ids=torch.cat(ids_parts),
+            bitmaps=torch.cat(bms_parts),
+            max_tiles=width,
+        )
     return fused, spans
 
 

@@ -20,15 +20,24 @@ There is no exporter: the profiler's trace is the timeline, and
                           server's request number
 ``serve.compile``         the host compile of a request; its seconds are
                           ``report()["serve"]["host_compile_s"]``'s, and
-                          the five ``compile.*`` spans run inside it
-``compile.activations``   ``compile_activations`` in ``compile_queries``
+                          the ``compile.*`` spans run inside it
+``compile.activations``   ``compile_activations``, in the server's
+                          ``_compile_batch`` and in ``compile_queries``
                           (one a table)
 ``compile.bitmaps``       the dense ``tile_ids``/``bitmaps`` fill in
-                          ``compile_queries`` (one a table)
-``compile.concat``        the per-table compiles rebased and concatenated
-``compile.shard_block``   ``shard_block_queries`` up to its uploads
-``compile.upload``        ``shard_block_queries``' two host-to-device
-                          copies: pinned, then enqueued non-blocking
+                          ``compile_queries`` (one a table; not on the
+                          serve path)
+``compile.concat``        ``concat_compiled_queries``: per-table dense
+                          compiles padded and concatenated (not on the
+                          serve path)
+``compile.shard_block``   ``shard_block_activations`` (rebase, union,
+                          slots and the ones' flat indices) or
+                          ``shard_block_queries``, up to the upload
+``compile.upload``        the schedule's host-to-device copy, pinned and
+                          enqueued non-blocking, and, in
+                          ``shard_block_activations``, the previous
+                          batch's ones cleared and this batch's set on
+                          the device
 ``serve.dispatch``        the kernel launches, casts, shard sum and
                           per-table slices of a batch
 ``serve.wait``            the host blocked on the card's event
@@ -42,8 +51,9 @@ There is no exporter: the profiler's trace is the timeline, and
 ========================  ====================================================
 
 Counters: ``h2d_bytes`` (every host-to-device copy
-``core.reduction._to_device`` issues), ``slots`` (non-padding
-``(shard, block, tile)`` slots dispatched) and ``read_slots`` (those the
+``core.reduction._to_device`` issues), ``expand_entries`` (the ones
+``shard_block_activations`` sets in a bitmap on a CUDA device), ``slots``
+(non-padding ``(shard, block, tile)`` slots dispatched) and ``read_slots`` (those the
 crossbar kernel takes down its READ path: the switch on and at most one
 nonzero bitmap entry across the slot's ``q_block × tile_rows``; for
 ``q_block`` above 16 the kernel decides per 16-query chunk, and the count

@@ -19,13 +19,16 @@ The decayed estimate is seeded with the plan's own load, so an
 undrifted workload starts at drift ≈ 0 and the training prior fades with
 a half-life of ``half_life`` flushes as real observations arrive.
 
-:class:`LoadObservationCache` memoizes the per-batch
-:func:`~repro_torch.core.reduction.fused_group_loads` observation by
-compiled-batch content: a replayed or steady-state stream re-flushes
+:class:`LoadObservationCache` memoizes the per-batch load observation
+by compiled-batch content: a replayed or steady-state stream re-flushes
 byte-identical compiled batches, and a content digest is one pass over
-the stack where the observation is several.
+the arrays where the observation is several.  The server observes the
+sparse :class:`~repro_torch.core.reduction.FusedActivations` of a batch
+(:func:`~repro_torch.core.reduction.activation_group_loads`); a dense
+compile is observed with :func:`~repro_torch.core.reduction.
+fused_group_loads`, and both give the same loads for the same batch.
 
-Everything here is host work on the CPU compile: it reads no tensor on
+Everything here is host work on the host compile: it reads no tensor on
 the card, so it overlaps a flush's kernels instead of waiting for them.
 """
 
@@ -38,7 +41,11 @@ import hashlib
 import numpy as np
 import torch
 
-from repro_torch.core.reduction import fused_group_loads
+from repro_torch.core.reduction import (
+    FusedActivations,
+    activation_group_loads,
+    fused_group_loads,
+)
 
 
 @dataclasses.dataclass
@@ -176,12 +183,14 @@ def _tensor_bytes(t: torch.Tensor) -> np.ndarray:
 class LoadObservationCache:
     """Content-keyed LRU memo for the per-flush load observation.
 
-    Keyed on a BLAKE2b digest of the compiled batch's ``tile_ids`` and
-    ``bitmaps`` bytes (shapes and dtypes included): two flushes of the
-    same shape but different queries have different loads, while a
-    replayed flush with byte-identical schedules has identical loads.  A
-    miss runs the real :func:`~repro_torch.core.reduction.
-    fused_group_loads`.
+    Keyed on a BLAKE2b digest of the batch's arrays (shapes and dtypes
+    included): a :class:`~repro_torch.core.reduction.FusedActivations`'
+    tile ids and popcounts, or a dense compiled batch's ``tile_ids`` and
+    ``bitmaps``.  Two flushes of the same shape but different queries
+    have different loads, while a replayed flush with byte-identical
+    schedules has identical loads.  A miss runs the real
+    :func:`~repro_torch.core.reduction.activation_group_loads` or
+    :func:`~repro_torch.core.reduction.fused_group_loads`.
 
     Returned arrays are shared with the cache — callers must not mutate
     them (``DriftTracker.observe`` does not).
@@ -194,25 +203,31 @@ class LoadObservationCache:
         self._memo: collections.OrderedDict = collections.OrderedDict()
 
     @staticmethod
-    def _key(cq) -> bytes:
-        ids, bms = cq.tile_ids, cq.bitmaps
+    def _key(obs) -> bytes:
+        if isinstance(obs, FusedActivations):
+            arrays = [torch.from_numpy(np.ascontiguousarray(a))
+                      for a in (obs.tile_ids, obs.rows)]
+        else:
+            arrays = [obs.tile_ids, obs.bitmaps]
         h = hashlib.blake2b(digest_size=16)
-        h.update(repr((tuple(ids.shape), str(ids.dtype),
-                       tuple(bms.shape), str(bms.dtype))).encode())
-        h.update(_tensor_bytes(ids))
-        h.update(_tensor_bytes(bms))
+        h.update(repr([(tuple(a.shape), str(a.dtype)) for a in arrays]).encode())
+        for a in arrays:
+            h.update(_tensor_bytes(a))
         return h.digest()
 
-    def loads(self, cq, tile_group: np.ndarray, num_groups: int) -> np.ndarray:
-        """Memoized ``fused_group_loads(cq, tile_group, num_groups)``."""
-        key = self._key(cq)
+    def loads(self, obs, tile_group: np.ndarray, num_groups: int) -> np.ndarray:
+        """Memoized loads of ``obs``, a :class:`~repro_torch.core.
+        reduction.FusedActivations` or a dense compiled batch."""
+        key = self._key(obs)
         hit = self._memo.get(key)
         if hit is not None:
             self.hits += 1
             self._memo.move_to_end(key)
             return hit
         self.misses += 1
-        out = fused_group_loads(cq, tile_group, num_groups)
+        observe = (activation_group_loads if isinstance(obs, FusedActivations)
+                   else fused_group_loads)
+        out = observe(obs, tile_group, num_groups)
         self._memo[key] = out
         while len(self._memo) > self.maxsize:
             self._memo.popitem(last=False)

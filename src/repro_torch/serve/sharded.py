@@ -125,14 +125,12 @@ import torch
 from repro_torch.core import trace
 from repro_torch.core.cooccurrence import build_cooccurrence
 from repro_torch.core.grouping import correlation_aware_grouping
-from repro_torch.core.mapping import build_layout
+from repro_torch.core.mapping import build_layout, compile_activations
 from repro_torch.core.reduction import (
-    CompiledQueries,
+    FusedActivations,
+    ZeroedBitmaps,
     _to_device,
-    compile_queries,
-    concat_compiled_queries,
-    offset_compiled_queries,
-    shard_block_queries,
+    shard_block_activations,
 )
 from repro_torch.core.replication import plan_replication
 from repro_torch.dist.mesh import MeshError, ShardMesh
@@ -183,7 +181,7 @@ class _InFlight:
     seqs: Dict[str, np.ndarray]            # per-table submission sequence ids
     t0: float                              # host compile start (perf_counter)
     n_queries: int
-    host_cq: object = None                 # the fused CPU compile (drift observation)
+    host_acts: object = None               # FusedActivations (drift observation)
     # recorded on the server's stream after the flush's last kernel;
     # None (CPU tensors, a test stub) counts as complete
     event: Optional[object] = None
@@ -553,6 +551,8 @@ class ShardedEmbeddingServer:
             torch.cuda.current_stream(self.device)
             if self.device.type == "cuda" else None
         )
+        #: the schedules' bitmaps, kept zeroed between batches on that stream
+        self._bitmaps = ZeroedBitmaps()
 
         dtypes = {tables[n].dtype for n in self.names}
         if len(dtypes) != 1:
@@ -870,7 +870,7 @@ class ShardedEmbeddingServer:
             with self._on_stream():
                 with trace.span("serve.compile") as compiling:
                     tc = time.perf_counter()
-                    host_cq, sbq, spans = self._compile_batch(
+                    host_acts, sbq, spans = self._compile_batch(
                         served_dev, {n: hot_of[n] for n in served_dev}
                     )
                     compile_s = time.perf_counter() - tc
@@ -880,8 +880,8 @@ class ShardedEmbeddingServer:
                 outs = self._reduce(sbq, spans)
                 event = self._record_event()
             # the kernels are dispatched but not waited for: the drift
-            # observation is host work on the CPU compile and overlaps them
-            self._observe_and_stage(host_cq, n_hot)
+            # observation is host work on the sparse compile and overlaps them
+            self._observe_and_stage(host_acts, n_hot)
         elif self.tracker is not None:
             # an all-cold batch still observed loads above: give the drift
             # statistic its chance to stage a paging patch
@@ -935,32 +935,35 @@ class ShardedEmbeddingServer:
             return _to_device(sums, self.device, self.dtype)
 
     def _compile_batch(self, served, queries_of, participants=None):
-        """Fused host compile: per-table compile (block-granular replica
-        choice) → rebase into the fused tile space → concat (blocks never
-        span tables) → per-shard block compile for ``participants``
-        (``None`` = every shard), moved to the device (kept on the CPU
-        under a mesh, whose ranks each take their own schedule).
+        """Fused host compile: each table's sparse activation set
+        (block-granular replica choice) → the per-shard blocked schedule
+        for ``participants`` (``None`` = every shard), built from the
+        sparse sets with :func:`shard_block_activations`: the tile ids
+        and the ones' flat indices cross to the device, and the ones are
+        set there in the server's kept-zeroed bitmap buffer (kept on the
+        CPU under a mesh, whose ranks each take their own schedule).  The
+        bitmap is valid until the next compile.
 
-        Returns ``(host_cq, sbq, spans)``: ``host_cq`` is the fused
-        compile on the CPU, which the drift observation reads.
+        Returns ``(host_acts, sbq, spans)``: ``host_acts`` is the batch's
+        :class:`FusedActivations` on the host, which the drift
+        observation reads (``None`` on a server without a tracker).
         """
         tables = [self.names.index(name) for name in served]
-        cqs = [
-            compile_queries(
-                self.layouts[i], queries_of[name],
-                replica_block=self.q_block, dtype=self.dtype, device="cpu",
-            )
-            for i, name in zip(tables, served)
-        ]
-        with trace.span("compile.concat"):
-            cqs = [offset_compiled_queries(cq, self.plan.tables[i].tile_offset)
-                   for i, cq in zip(tables, cqs)]
-            fused_cq, spans = concat_compiled_queries(cqs, self.q_block)
-        sbq = shard_block_queries(
-            fused_cq, self.plan, self.q_block, participants=participants,
-            device="cpu" if self.mesh is not None else self.device,
+        acts = []
+        for i, name in zip(tables, served):
+            with trace.span("compile.activations"):
+                acts.append(compile_activations(
+                    self.layouts[i], queries_of[name], replica_block=self.q_block,
+                ))
+        offsets = [self.plan.tables[i].tile_offset for i in tables]
+        # only the drift observation reads the fused activations
+        fused = FusedActivations.of(acts, offsets) if self.tracker is not None else None
+        sbq, spans = shard_block_activations(
+            acts, offsets, self.plan, self.q_block, participants=participants,
+            device="cpu" if self.mesh is not None else self.device, dtype=self.dtype,
+            fused=fused, bitmaps=self._bitmaps,
         )
-        return fused_cq, sbq, spans
+        return fused, sbq, spans
 
     # ------------------------------------------------------------- mesh --
 
@@ -1105,10 +1108,10 @@ class ShardedEmbeddingServer:
             # was flushed under the old plan before we got here)
             self.scheduler.rebuild(self.plan)
 
-    def _observe_and_stage(self, host_cq: CompiledQueries, n_queries: int) -> None:
+    def _observe_and_stage(self, host_acts: FusedActivations, n_queries: int) -> None:
         """Feeds the tracker and stages a patch when drift crosses.
 
-        Host-only work on the CPU compile, scheduled between a flush's
+        Host-only work on the sparse compile, scheduled between a flush's
         kernel dispatch and the wait for its event.  A no-op
         (class-unchanged) patch is applied at once as a load rebase: it
         touches no device state.
@@ -1116,7 +1119,7 @@ class ShardedEmbeddingServer:
         if self.tracker is None:
             return
         loads = self._load_obs.loads(
-            host_cq, self._tile_group, self.plan.num_groups
+            host_acts, self._tile_group, self.plan.num_groups
         )
         self.stats.load_obs_hits = self._load_obs.hits
         self.stats.load_obs_misses = self._load_obs.misses
@@ -1515,9 +1518,9 @@ class ShardedEmbeddingServer:
             self.stats.in_flight_peak, len(self._in_flight)
         )
         self.stats.record_flush_home(home)
-        # drift bookkeeping is host work on the CPU compile: it overlaps
+        # drift bookkeeping is host work on the sparse compile: it overlaps
         # this flush's kernels exactly like the next flush's compile does
-        self._observe_and_stage(entry.host_cq, entry.n_queries)
+        self._observe_and_stage(entry.host_acts, entry.n_queries)
         while len(self._in_flight) > self.policy.max_in_flight:
             self._retire_oldest()
 
@@ -1560,7 +1563,7 @@ class ShardedEmbeddingServer:
             qs.append(query)
         served = [n for n in self.names if n in by_table]
         with self._on_stream():
-            host_cq, sbq, spans = self._compile_batch(
+            host_acts, sbq, spans = self._compile_batch(
                 served, {n: by_table[n][1] for n in served},
                 participants=participants,
             )
@@ -1578,7 +1581,7 @@ class ShardedEmbeddingServer:
             seqs={n: np.asarray(by_table[n][0], dtype=np.int64)
                   for n in served},
             t0=t0, n_queries=sum(len(by_table[n][1]) for n in served),
-            host_cq=host_cq, event=event, t_dispatch=time.perf_counter(),
+            host_acts=host_acts, event=event, t_dispatch=time.perf_counter(),
             hang_s=hang_s,
         )
 

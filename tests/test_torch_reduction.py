@@ -212,3 +212,218 @@ def test_reduction_flops_torch_tensor(dynamic_switch, dtype):
     ref = jred.reduction_flops(np.asarray(cj.bitmaps), 128, dynamic_switch)
     port = tred.reduction_flops(ct.bitmaps, 128, dynamic_switch)
     assert type(port) is int and port == ref > 0
+
+
+# ------------------------------------- the sparse per-shard compile --
+
+
+def _sparse_setup(num_shards, with_jax=False):
+    """Three tables (the third gets no queries) and their shard plan:
+    ``(plan, layouts, queries, tile offsets)``, and with ``with_jax`` the
+    reference's ``(plan, layouts)`` of the same tables after them."""
+    both = [_layouts(seed=3), _layouts(seed=4), _layouts(seed=5)]
+    plans = []
+    for side, dist in ((1, tdist), (0, jdist)):
+        tables = [t[side] for t in both]
+        layouts = [lay for lay, _, _ in tables]
+        plans.append((dist.plan_shards(layouts, [p for _, p, _ in tables], num_shards,
+                                       group_freqs=[g for _, _, g in tables]), layouts))
+    (sp, layouts), jax_side = plans
+    evs = [zipf_queries(512, n, 8.0, seed=40 + n) for n in (13, 22)] + [[]]
+    offsets = [seg.tile_offset for seg in sp.tables]
+    return (sp, layouts, evs, offsets, *jax_side) if with_jax else (sp, layouts, evs, offsets)
+
+
+def _dense_chain(sp, layouts, evs, offsets, q_block, dtype, red=tred):
+    """The dense compile's fused batch and spans, by the port (``tred``)
+    or the reference (``jred``, with a JAX ``dtype``)."""
+    kw = {"device": "cpu"} if red is tred else {}
+    cqs = [red.offset_compiled_queries(
+        red.compile_queries(lay, ev, replica_block=q_block, dtype=dtype, **kw), off)
+        for lay, ev, off in zip(layouts, evs, offsets)]
+    return red.concat_compiled_queries(cqs, q_block)
+
+
+def _activations(layouts, evs, q_block):
+    return [tcore.compile_activations(lay, ev, replica_block=q_block)
+            for lay, ev in zip(layouts, evs)]
+
+
+def _owners_within(sp, layouts, evs, offsets, q_block, shards):
+    """Each table's queries whose sharded-once tiles all live on ``shards``."""
+    kept = []
+    for lay, ev, off in zip(layouts, evs, offsets):
+        acts = tcore.compile_activations(lay, ev, replica_block=q_block)
+        own = np.asarray(sp.shard_of_tile)[acts.act_tile + off]
+        bad = set(acts.act_qid[(own >= 0) & ~np.isin(own, shards)].tolist())
+        kept.append([q for i, q in enumerate(ev) if i not in bad])
+    return kept
+
+
+def assert_same_sharded(ref, got):
+    """Field-by-field, bit-for-bit equality of two sharded blocked batches."""
+    for f in ("tile_ids", "bitmaps"):
+        a, b = getattr(ref, f), getattr(got, f)
+        assert a.dtype == b.dtype and a.shape == b.shape, f
+        assert torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16 else a,
+                           b.view(torch.int16) if b.dtype == torch.bfloat16 else b), f
+    np.testing.assert_array_equal(ref.shard_widths, got.shard_widths)
+    assert ref.shard_widths.dtype == got.shard_widths.dtype
+    assert (ref.shards is None) == (got.shards is None)
+    if ref.shards is not None:
+        np.testing.assert_array_equal(ref.shards, got.shards)
+    assert (ref.q_block, ref.batch, ref.slot_counts) == (got.q_block, got.batch, got.slot_counts)
+
+
+@pytest.mark.parametrize("traced", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    "shards1", "shards2", "shards4", "parts_reordered", "parts_subset",
+    "q_block8_ragged", "all_empty", "int64_index",
+])
+def test_shard_block_activations_equals_the_dense_chain(case, dtype, traced, monkeypatch):
+    """The sparse compile gives, bit for bit, the port's dense chain's
+    batch and spans, and the reference's
+    (``repro.core.reduction.shard_block_queries`` of its fused dense
+    compile) on the same queries: shard counts 1, 2 and 4; participants
+    reordered and a proper subset (replicated-everywhere tiles
+    round-robin over them); a q_block that leaves ragged tables; a table
+    with no queries in every case and only empty queries in one; f32 and
+    bf16; tracing on and off."""
+    from repro_torch.core import trace
+
+    num_shards = {"shards1": 1, "shards2": 2}.get(case, 4)
+    q_block = 8 if case == "q_block8_ragged" else 4
+    sp, layouts, evs, offsets, spj, layouts_j = _sparse_setup(num_shards, with_jax=True)
+    participants = {"parts_reordered": [3, 1, 0, 2], "parts_subset": [3, 0, 2]}.get(case)
+    if case == "parts_subset":
+        evs = [zipf_queries(512, 48, 3.0, seed=s) for s in (7, 8)] + [[]]
+        evs = _owners_within(sp, layouts, evs, offsets, q_block, [3, 0, 2])
+        own = np.asarray(sp.shard_of_tile)
+        for lay, ev, off in zip(layouts, evs, offsets):   # and replicated rows
+            rep_rows = np.nonzero(own[np.asarray(lay.tile_base)[lay.group_of] + off] == -1)[0]
+            ev += [rep_rows[i:i + 2] for i in range(0, min(rep_rows.size, 12), 2)]
+        assert min(map(len, evs[:2])) >= 5 and set(own[own >= 0]) > {3, 0, 2}
+    if case == "all_empty":
+        evs = [[[]] * 5, [], [[], []]]
+    if case == "int64_index":
+        monkeypatch.setattr(tred, "_flat_index_dtype", lambda numel: np.dtype(np.int64))
+    was = trace.enabled()
+    trace.set_enabled(traced)
+    try:
+        fused, spans = _dense_chain(sp, layouts, evs, offsets, q_block, dtype)
+        ref = tred.shard_block_queries(fused, sp, q_block, participants=participants)
+        got, got_spans = tred.shard_block_activations(
+            _activations(layouts, evs, q_block), offsets, sp, q_block,
+            participants=participants, device="cpu", dtype=dtype)
+    finally:
+        trace.set_enabled(was)
+    assert got_spans == spans
+    assert_same_sharded(ref, got)
+    fused_j, spans_j = _dense_chain(spj, layouts_j, evs, [seg.tile_offset for seg in spj.tables],
+                                    q_block, getattr(jnp, str(dtype).split(".")[1]), red=jred)
+    assert got_spans == spans_j
+    assert_same_compile(jred.shard_block_queries(fused_j, spj, q_block,
+                                                 participants=participants), got)
+    assert (ref.slot_counts is not None) == traced
+    if case != "all_empty":
+        assert int((got.bitmaps != 0).sum()) > 0
+    if case == "parts_subset":
+        rep = own[np.unique(fused.tile_ids[fused.tile_ids >= 0].numpy())] == -1
+        assert rep.any()   # the batch activates replicated-everywhere tiles
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_zeroed_bitmaps_clear_each_batch_before_the_next(dtype):
+    """Batches of changing shape compiled through one kept-zeroed buffer:
+    each bitmap equals the dense chain's while it is current, the buffer
+    holds no one but the newest batch's, it grows to the largest grid,
+    and a new dtype starts a new buffer."""
+    q_block = 4
+    sp, layouts, evs, offsets = _sparse_setup(4)
+    scratch = tred.ZeroedBitmaps()
+    batches = [evs, [ev[:3] for ev in evs], [evs[1], evs[0], []], [[[]] * 2, [], []]]
+    biggest = 0
+    for qs in batches:
+        fused, _ = _dense_chain(sp, layouts, qs, offsets, q_block, dtype)
+        ref = tred.shard_block_queries(fused, sp, q_block)
+        got, _ = tred.shard_block_activations(
+            _activations(layouts, qs, q_block), offsets, sp, q_block,
+            device="cpu", dtype=dtype, bitmaps=scratch)
+        assert_same_sharded(ref, got)
+        biggest = max(biggest, got.bitmaps.numel())
+        flat = scratch._flat
+        assert flat.numel() == biggest and flat.dtype == dtype
+        assert int((flat != 0).sum()) == int((got.bitmaps != 0).sum())
+    assert biggest > got.bitmaps.numel() and int((scratch._flat != 0).sum()) == 0
+    other = torch.float32 if dtype == torch.bfloat16 else torch.bfloat16
+    ones = torch.tensor([0, 5], dtype=torch.int64)
+    bm = scratch.take((2, 4), ones, other)
+    assert bm.dtype == other and scratch._flat.numel() == 8
+    assert bm.flatten().tolist() == [1, 0, 0, 0, 0, 1, 0, 0]
+
+
+@pytest.mark.parametrize("fault", ["cold", "non_participant", "unheld", "participants"])
+def test_shard_block_activations_raises_as_the_dense_chain(fault):
+    """A cold tile, a tile owned outside the participants, one its owner
+    does not hold and a bad participant list raise the same errors."""
+    q_block = 4
+    sp, layouts, evs, offsets = _sparse_setup(4)
+    acts = _activations(layouts, evs, q_block)
+    tile = int(acts[0].act_tile[0] + offsets[0])
+    participants = None
+    if fault == "cold":
+        sot = np.asarray(sp.shard_of_tile).copy()
+        sot[tile] = -2
+        sp = dataclasses.replace(sp, shard_of_tile=sot)
+    elif fault == "non_participant":
+        participants = [0]
+    elif fault == "unheld":
+        lto = np.asarray(sp.local_tile_of).copy()
+        lto[:, tile] = -1
+        sot = np.asarray(sp.shard_of_tile).copy()
+        sot[tile] = 1
+        sp = dataclasses.replace(sp, shard_of_tile=sot, local_tile_of=lto)
+    else:
+        participants = [1, 1]
+    fused, _ = _dense_chain(sp, layouts, evs, offsets, q_block, torch.float32)
+    with pytest.raises(ValueError) as dense:
+        tred.shard_block_queries(fused, sp, q_block, participants=participants)
+    with pytest.raises(ValueError) as sparse:
+        tred.shard_block_activations(acts, offsets, sp, q_block,
+                                     participants=participants, device="cpu")
+    assert str(sparse.value) == str(dense.value)
+
+
+@pytest.mark.parametrize("numel, want", [
+    (0, np.int32), ((1 << 31) - 1, np.int32), (1 << 31, np.int64),
+    # the (P, nb, max_tiles, q_block, tile_rows) products, never allocated
+    (1 * 4096 * 512 * 8 * 128, np.int64), (4 * 256 * 48 * 8 * 64, np.int32),
+    (2 * 8192 * 1024 * 16 * 64, np.int64),
+])
+def test_flat_index_dtype_at_two_to_the_31(numel, want):
+    assert tred._flat_index_dtype(numel) == np.dtype(want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sparse_drift_loads_equal_the_dense_compiles(dtype):
+    """The server's sparse observation gives ``fused_group_loads`` of the
+    dense compile exactly, and the memo hits on a replay."""
+    from repro_torch.serve import LoadObservationCache
+
+    q_block = 4
+    sp, layouts, evs, offsets = _sparse_setup(2)
+    tile_group = np.repeat(np.arange(sp.num_groups), sp.group_copies)
+    fused, _ = _dense_chain(sp, layouts, evs, offsets, q_block, dtype)
+    sparse = tred.FusedActivations.of(_activations(layouts, evs, q_block), offsets)
+    want = tred.fused_group_loads(fused, tile_group, sp.num_groups)
+    got = tred.activation_group_loads(sparse, tile_group, sp.num_groups)
+    assert got.dtype == want.dtype == np.float64 and want.sum() > 0
+    np.testing.assert_array_equal(got, want)
+    cache = LoadObservationCache()
+    np.testing.assert_array_equal(cache.loads(sparse, tile_group, sp.num_groups), want)
+    replay = tred.FusedActivations.of(_activations(layouts, evs, q_block), offsets)
+    cache.loads(replay, tile_group, sp.num_groups)
+    other = tred.FusedActivations.of(_activations(layouts, evs[::-1], q_block), offsets[::-1])
+    cache.loads(other, tile_group, sp.num_groups)
+    assert (cache.hits, cache.misses) == (1, 2)

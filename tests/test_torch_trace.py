@@ -18,8 +18,7 @@ from repro_torch.data.synthetic import zipf_queries
 from repro_torch.serve import ShardedEmbeddingServer, TierConfig
 
 ROWS = {"a": 192, "b": 512}
-COMPILE = ("compile.activations", "compile.bitmaps", "compile.concat",
-           "compile.shard_block", "compile.upload")
+COMPILE = ("compile.activations", "compile.shard_block", "compile.upload")
 PLAN = ("plan.cooccurrence", "plan.grouping", "plan.replication", "plan.placement",
         "plan.image")
 
@@ -71,11 +70,12 @@ def test_on_records_every_span_where_its_work_happens():
         server.serve(_request(seed))
     got = trace.totals()
     calls = {n: c for n, (_, c) in got["spans"].items()}
-    # a CPU server has no event to wait for and issues no host-to-device copy
+    # a CPU server has no event to wait for, issues no host-to-device copy
+    # and expands no bitmap on a card; the dense compile's stages are gone
     assert calls == {"serve.request": 3, "serve.compile": 3, "compile.activations": 6,
-                     "compile.bitmaps": 6, "compile.concat": 3, "compile.shard_block": 3,
-                     "compile.upload": 3, "serve.dispatch": 3}
+                     "compile.shard_block": 3, "compile.upload": 3, "serve.dispatch": 3}
     assert set(got["counters"]) == {"slots", "read_slots"}
+    assert got["counters"].get("expand_entries", 0) == 0
     assert 0 < got["counters"]["read_slots"] <= got["counters"]["slots"]
 
 
@@ -125,8 +125,7 @@ def test_spans_nest_under_the_request_in_a_profiler_trace(monkeypatch):
             parent = parent.cpu_parent
         assert parent is not None, e.name
     inside = {e.name: e.cpu_parent.name for e in program if e.name in COMPILE}
-    assert inside["compile.concat"] == inside["compile.shard_block"] == "serve.compile"
-    assert inside["compile.activations"] == inside["compile.bitmaps"] == "serve.compile"
+    assert inside == dict.fromkeys(COMPILE, "serve.compile")
 
 
 def _brute_force(sbq):
@@ -145,16 +144,18 @@ def test_slot_counters_equal_a_brute_force_count(switch):
 
     def capturing(*a, **kw):
         out = compile_batch(*a, **kw)
-        seen.append(out[1])
+        # counted now: the bitmap is the server's kept-zeroed buffer, which
+        # the next compile clears
+        seen.append((out[1].slot_counts, _brute_force(out[1])))
         return out
 
     server._compile_batch = capturing
     trace.reset()
     for seed in (1, 2):
         server.serve(_request(seed))
-    slots = sum(_brute_force(sbq)[0] for sbq in seen)
-    single = sum(_brute_force(sbq)[1] for sbq in seen)
-    assert [sbq.slot_counts for sbq in seen] == [_brute_force(sbq) for sbq in seen]
+    slots = sum(brute[0] for _, brute in seen)
+    single = sum(brute[1] for _, brute in seen)
+    assert [counted for counted, _ in seen] == [brute for _, brute in seen]
     assert 0 < single < slots
     counters = trace.totals()["counters"]
     assert counters == {"slots": slots, "read_slots": single if switch else 0}
@@ -162,12 +163,20 @@ def test_slot_counters_equal_a_brute_force_count(switch):
 
 def test_slots_are_not_counted_while_off():
     server = _server()
+    offsets = [server.plan.tables[i].tile_offset for i in range(len(server.names))]
     cqs = [tred.offset_compiled_queries(
         tred.compile_queries(server.layouts[i], _request(1)[n], replica_block=4, device="cpu"),
-        server.plan.tables[i].tile_offset) for i, n in enumerate(server.names)]
+        offsets[i]) for i, n in enumerate(server.names)]
     fused, _ = tred.concat_compiled_queries(cqs, 4)
+    acts = [tred.compile_activations(server.layouts[i], _request(1)[n], replica_block=4)
+            for i, n in enumerate(server.names)]
+
+    def both():
+        return (tred.shard_block_queries(fused, server.plan, 4),
+                tred.shard_block_activations(acts, offsets, server.plan, 4, device="cpu")[0])
+
     trace.set_enabled(False)
-    assert tred.shard_block_queries(fused, server.plan, 4).slot_counts is None
+    assert [sbq.slot_counts for sbq in both()] == [None, None]
     trace.set_enabled(True)
-    sbq = tred.shard_block_queries(fused, server.plan, 4)
-    assert sbq.slot_counts == _brute_force(sbq)
+    for sbq in both():
+        assert sbq.slot_counts == _brute_force(sbq)
