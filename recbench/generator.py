@@ -13,12 +13,18 @@ its own:
 
 So the plan is the same in every run of a cell, and the served traffic is
 drawn from the distribution the plan was built for.  Three departures from
-``scale_trace``: a bag holds exactly ``1 + Poisson(mean_bag - 1)`` distinct
-rows (repeated draws are rejected and drawn again, so the mean bag is
-Table I's "Avg. Lat"; ``scale_trace`` drops repeats and serves shorter
-bags); a template whose cluster is empty is drawn from the global
-popularity instead of being dropped; and the served stream replays no
-template (below).
+``scale_trace``: a bag holds exactly as many distinct rows as its table's
+bag law gives (repeated draws are rejected and drawn again, so under
+``"poisson"`` the mean bag is Table I's "Avg. Lat"; ``scale_trace`` drops
+repeats and serves shorter bags); a template whose cluster is empty is
+drawn from the global popularity instead of being dropped; and the served
+stream replays no template (below).
+
+A table's bag law (:data:`LAWS`) is ``"poisson"``, ``1 + Poisson(bag - 1)``
+rows clamped to the table's rows, as ``scale_trace`` draws them, or
+``"fixed"``, exactly ``min(bag, rows)`` rows, as a multi-hot feature of a
+fixed size looks up.  A fixed law draws no lengths, so it takes nothing
+from the generators that the rows are drawn from.
 
 A traffic file's ``kind`` is ``"templates"`` (co-occurring baskets) or
 ``"independent"`` (every row of every bag drawn on its own from the global
@@ -38,6 +44,7 @@ import numpy as np
 import torch
 
 KINDS = ("templates", "independent")
+LAWS = ("poisson", "fixed")
 #: requests generated at a time from a stream's generators; the stream a
 #: seed gives does not depend on how many blocks are drawn
 BLOCK_REQUESTS = 64
@@ -68,17 +75,27 @@ class Clusters:
 
 @dataclasses.dataclass(frozen=True)
 class Catalogue:
-    """One table's fixed structure: ``porder[r]`` is the row of popularity
-    rank ``r``; ``templates`` the template baskets and ``template_cluster``
-    the cluster of each (both ``None`` for independent traffic)."""
+    """One table's fixed structure: ``bag`` and ``law`` its bag law;
+    ``porder[r]`` is the row of popularity rank ``r``; ``templates`` the
+    template baskets and ``template_cluster`` the cluster of each (both
+    ``None`` for independent traffic)."""
 
     rows: int
-    mean_bag: float
+    bag: float
+    law: str
     mix: dict
     porder: np.ndarray
     templates: list[np.ndarray] | None
     template_cluster: np.ndarray | None = None
     clusters: Clusters | None = None
+
+
+def bag_lengths(cat: Catalogue, rng: np.random.Generator, n: int) -> np.ndarray:
+    """``n`` bag lengths by the table's law, clamped to its rows; under
+    ``"poisson"`` one draw from ``rng``, under ``"fixed"`` none."""
+    if cat.law == "fixed":
+        return np.full(n, min(int(cat.bag), cat.rows), dtype=np.int64)
+    return np.minimum(1 + rng.poisson(max(cat.bag - 1.0, 0.0), size=n), cat.rows)
 
 
 def _draw_global(cat: Catalogue, rng: np.random.Generator, n: int) -> np.ndarray:
@@ -138,14 +155,17 @@ def distinct_bags(rng: np.random.Generator, lens: np.ndarray, draw) -> list[np.n
     raise RuntimeError(f"{todo.size} bags found too few distinct rows")
 
 
-def make_catalogue(rows: int, mean_bag: float, mix: dict, seed) -> Catalogue:
-    """The catalogue of one table, from ``seed`` (an int or a list of ints)."""
+def make_catalogue(rows: int, bag: float, mix: dict, seed, law: str = "poisson") -> Catalogue:
+    """The catalogue of one table, from ``seed`` (an int or a list of ints),
+    its bags drawn by ``law`` (:data:`LAWS`) with parameter ``bag``."""
     if mix["kind"] not in KINDS:
         raise ValueError(f"traffic kind {mix['kind']!r} not in {KINDS}")
+    if law not in LAWS:
+        raise ValueError(f"bag law {law!r} not in {LAWS}")
     rng = np.random.default_rng(seed)
     porder = rng.permutation(rows).astype(np.int64)
     if mix["kind"] == "independent":
-        return Catalogue(rows, float(mean_bag), dict(mix), porder, None)
+        return Catalogue(rows, float(bag), law, dict(mix), porder, None)
     a = mix["zipf_a"]
     num_clusters = max(8, rows // mix["rows_per_cluster"])
     prank = np.empty(rows, dtype=np.int64)
@@ -164,9 +184,8 @@ def make_catalogue(rows: int, mean_bag: float, mix: dict, seed) -> Catalogue:
     nt = max(64, rows // mix["rows_per_template"])
     tpl_cluster = cl_rank[zipf_ranks(np.full(nt, num_clusters), rng.random(nt),
                                      mix["template_zipf"])]
-    lens = 1 + rng.poisson(max(mean_bag - 1.0, 0.0), size=nt)
-    cat = Catalogue(rows, float(mean_bag), dict(mix), porder, None, tpl_cluster, clusters)
-    templates = distinct_bags(rng, np.minimum(lens, rows),
+    cat = Catalogue(rows, float(bag), law, dict(mix), porder, None, tpl_cluster, clusters)
+    templates = distinct_bags(rng, bag_lengths(cat, rng, nt),
                               lambda owner: _draw_in_clusters(cat, clusters, rng,
                                                               tpl_cluster[owner]))
     return dataclasses.replace(cat, templates=templates)
@@ -176,8 +195,8 @@ def draw_bags(cat: Catalogue, rng: np.random.Generator, n: int) -> list[np.ndarr
     """``n`` bags of the plan history, from ``rng``: under templates each is
     a template's own array, picked by the Zipf over templates."""
     if cat.templates is None:
-        lens = np.minimum(1 + rng.poisson(max(cat.mean_bag - 1.0, 0.0), size=n), cat.rows)
-        return distinct_bags(rng, lens, lambda owner: _draw_global(cat, rng, owner.size))
+        return distinct_bags(rng, bag_lengths(cat, rng, n),
+                             lambda owner: _draw_global(cat, rng, owner.size))
     pick = zipf_ranks(np.full(n, len(cat.templates)), rng.random(n), cat.mix["template_zipf"])
     return [cat.templates[i] for i in pick.tolist()]
 
@@ -238,13 +257,17 @@ class DeviceCatalogue:
         """``n`` fresh bags: their rows, bag after bag and each sorted, and
         their lengths, as host arrays.
 
-        Each bag holds ``1 + Poisson(mean_bag - 1)`` distinct rows: the first
-        that distinct of its sequence of draws, as :func:`distinct_bags`.
+        Each bag holds as many distinct rows as :func:`bag_lengths` gives
+        (drawn here from ``gen``): the first that distinct of its sequence
+        of draws, as :func:`distinct_bags`.
         """
         cat, dev = self.cat, self.device
-        lens = torch.poisson(torch.full((n,), max(cat.mean_bag - 1.0, 0.0), dtype=torch.float64,
-                                        device=dev), generator=gen).to(torch.int64) + 1
-        lens = lens.clamp_max(cat.rows)
+        if cat.law == "fixed":
+            lens = torch.full((n,), min(int(cat.bag), cat.rows), dtype=torch.int64, device=dev)
+        else:
+            lens = torch.poisson(torch.full((n,), max(cat.bag - 1.0, 0.0), dtype=torch.float64,
+                                            device=dev), generator=gen).to(torch.int64) + 1
+            lens = lens.clamp_max(cat.rows)
         cluster = None
         if cat.templates is not None:
             pick = _zipf_ranks_t(torch.full((n,), len(cat.templates), device=dev),
@@ -282,7 +305,7 @@ class DeviceCatalogue:
         return flat.cpu().numpy(), lens.cpu().numpy()
 
 
-def _seed_of(seed) -> int:
+def seed_of(seed) -> int:
     """One 63-bit seed for a torch.Generator from a list of whole numbers."""
     return int(np.random.SeedSequence(list(seed)).generate_state(1, np.uint64)[0] >> np.uint64(1))
 
@@ -301,7 +324,7 @@ class Stream:
         self._tables = {}
         for t, n in enumerate(sorted(catalogues)):
             gen = torch.Generator(device=device)
-            gen.manual_seed(_seed_of([*seed, t]))
+            gen.manual_seed(seed_of([*seed, t]))
             self._tables[n] = (DeviceCatalogue(catalogues[n], device), gen)
         self.requests: list[dict[str, list[np.ndarray]]] = []
 

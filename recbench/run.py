@@ -7,9 +7,10 @@ Run from the root of a checkout::
 It needs one CUDA card (the cells ask for one), and exits with code 1 and
 prints no result without it.  With ``--trace 0`` the result carries the
 cell's end-to-end metrics, with ``--trace 1`` its per-layer metrics, read
-under the profiler.  The last line of standard output is the result, one
-JSON object; the last lines of standard error give each number the check
-compared, beside its limit.  The program comes from ``src/`` of the
+under the profiler and from the program's own spans and counters.  The
+last line of standard output is the result, one JSON object; the last
+lines of standard error give each number the check compared, beside its
+limit.  The program comes from ``src/`` of the
 checkout, its kernels are built into ``build/`` there.
 
 The process runs on the highest :data:`HOST_CPUS` CPUs of its affinity
@@ -92,7 +93,7 @@ def execute(root: Path, cell, seed: int, seconds: float, traced: bool, device: s
     if trace is not None:
         info["busy_s"] = trace.busy_s()
         info["window_s"] = trace.window_s
-        line["breakdown"] = {"device_ops": trace.device_ops()}
+        line["breakdown"] = {"device_ops": trace.device_ops(), "idle_gaps": trace.idle_gaps()}
     line["footprint"] = {k: run[k] for k in ("server_bytes", "image_bytes", "window_peak_bytes")}
     line["host"] = {"cpus": sorted(os.sched_getaffinity(0)), "plan_build_s": run["plan_build_s"]}
     line["checks"] = {k: {"value": readings[k], "limit": limits[k]} for k in limits}

@@ -29,7 +29,9 @@ def test_benchmark_json_keeps_the_contract():
         assert set(c) == {"name", "source", "file", "reduced", "why"} and NAME.match(c["name"])
         assert c["file"].startswith("recbench/configs/") and (ROOT / c["file"]).is_file()
         cfg = json.loads((ROOT / c["file"]).read_text())
-        assert cfg["name"] == c["name"] and cfg["embed_dim"] == 64 and "assumed" in cfg
+        assert cfg["name"] == c["name"] and "assumed" in cfg
+        # the kernel's width rule: rows served at a multiple of 128 columns
+        assert cfg["embed_dim"] <= cfg["padded_dim"] and cfg["padded_dim"] % 128 == 0
         assert set(cfg["limits"]) == {"failed_requests", "max_abs_err", "pad_nonzero"}
     cells = set()
     for w in bench["workloads"]:
@@ -61,8 +63,11 @@ def test_a_new_mix_and_cell_are_data_alone(tmp_path):
     assert run["samples"] == 16 * line["attempted"]
     line, run = run_tiny(root, "tiny.burst", traced=True)
     assert line["correct"]
-    # on the CPU only the host readers find something to read
-    assert set(line["metrics"]) == {"plan.build_s", "compile.host_ms_per_request", "serve.mfu"}
+    # on the CPU only the host readers and those of the program's spans and
+    # counters find something to read
+    assert set(line["metrics"]) == {"plan.build_s", "compile.host_ms_per_request", "serve.mfu",
+                                    "compile.activations_ms_per_request", "plan.cooccurrence_s",
+                                    "plan.grouping_s", "kernel.read_slot_share"}
     assert line["device"]["window_s"] > 0 and "device_ops" in line["breakdown"]
 
 
