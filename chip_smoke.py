@@ -113,6 +113,13 @@ Phases, in order; any failure propagates and the process exits non-zero:
    equal the dense path's, and loss and every gradient equal autograd
    through the plain versions; then 20 SGD steps through
    ``launch.train_dlrm.train`` with finite losses;
+   dlrm-dcnv2: MLPerf's DLRM-DCNv2 at ``configs.dlrm_dcnv2.one_card()``'s
+   widths, bags and dense network (26 tables of 128 f32, rows capped at
+   262,144, a 3-layer rank-512 cross network over 3,456 values), N(0, 1)
+   tables: 8 requests of 64 samples through ``ShardedEmbeddingServer.serve``
+   and ``dlrm_forward(..., "served")``, every logit within 1e-4 of the
+   largest against ``recbench/dcnv2_reference.forward`` on the card
+   (TF32 off); serve and the dense network timed on the host clock;
 8. flash-decode parity: the kernel against its plain version at ten
    shapes, f32 and bf16, lengths 0, 1, S/3 + 7 and S (and 64, 65, 574 at
    the served shape, 15, 16, 31, 32 at lm-train's b 4, S 4,096; the
@@ -295,6 +302,13 @@ PLAN_BUDGET_S = 180.0
 MAX_BAG = 64                           # dlrm-recross FULL
 TRAIN_STEPS = 20
 LR = 1e-2
+# dlrm-dcnv2: one_card()'s widths, bags and dense network; rows capped so
+# that its plan builds in seconds (the benchmark's cell serves the whole cut)
+DCNV2_MAX_ROWS = 262_144
+DCNV2_HISTORY = 2_048                  # bags a table for the plan
+DCNV2_REQUESTS = 8                     # scored requests of DCNV2_BATCH samples
+DCNV2_BATCH = 64
+DCNV2_REL_TOL = 1e-4                   # tests/test_torch_dlrm_dcnv2.py's REL_TOL
 DEVICE = "cuda"
 
 LM_ARCH = "chatglm3-6b"                # FULL: 28 layers, d 4096, 32 q / 2 kv heads
@@ -2447,6 +2461,82 @@ def phase_dlrm(torch, np, timer, server, tables, histories) -> dict:
     return out
 
 
+def _dcnv2_bags(np, rng, rows, bag, n):
+    """``n`` bags of ``min(bag, rows)`` distinct sorted ids."""
+    return [np.sort(rng.choice(rows, size=min(bag, rows), replace=False)) for _ in range(n)]
+
+
+def phase_dcnv2(torch, np) -> dict:
+    """MLPerf's DLRM-DCNv2 scored on the card: ``server.serve(request)``
+    then ``dlrm_forward(..., "served")`` at ``one_card()``'s widths, its
+    rows capped at ``DCNV2_MAX_ROWS``, against the plain reference."""
+    sys.path.insert(0, str(ROOT))
+    from recbench import dcnv2_reference
+    from repro_torch.configs import dlrm_dcnv2
+    from repro_torch.kernels.crossbar_reduce import crossbar_reduce_cuda
+    from repro_torch.models.dlrm import dlrm_forward, init_dlrm
+    from repro_torch.serve import ShardedEmbeddingServer
+
+    one = dlrm_dcnv2.one_card()
+    cfg = dataclasses.replace(one, embedding_path="served",
+                              table_rows=tuple(min(r, DCNV2_MAX_ROWS) for r in one.table_rows))
+    names = [f"t{t}" for t in range(cfg.num_tables)]
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    params = init_dlrm(gen, cfg, device=DEVICE)
+    # N(0, 1) tables, as the benchmark's: the cross layers' products of
+    # N(0, 0.01²) rows would leave the logits to the bottom MLP
+    params["tables"] = {n: torch.randn(t.shape, generator=gen, device=DEVICE)
+                        for n, t in params["tables"].items()}
+    rng = np.random.default_rng(0)
+    histories = {n: _dcnv2_bags(np, rng, cfg.rows_of(t), cfg.bag_sizes[t], DCNV2_HISTORY)
+                 for t, n in enumerate(names)}
+    t0 = time.perf_counter()
+    server = ShardedEmbeddingServer(params["tables"], histories, num_shards=1,
+                                    q_block=Q_BLOCK, group_size=cfg.group_size,
+                                    batch_size=BATCH_SIZE, combine_chunks=2,
+                                    dynamic_switch=True, device=DEVICE)
+    plan_s = time.perf_counter() - t0
+
+    launches0 = crossbar_reduce_cuda.launches
+    serve_ms, dense_ms, rel, top = [], [], 0.0, 0.0
+    for _ in range(DCNV2_REQUESTS):
+        request = {n: _dcnv2_bags(np, rng, cfg.rows_of(t), cfg.bag_sizes[t], DCNV2_BATCH)
+                   for t, n in enumerate(names)}
+        dense = torch.from_numpy(
+            rng.standard_normal((DCNV2_BATCH, cfg.dense_features), dtype=np.float32)).to(DEVICE)
+        t0 = time.perf_counter()
+        pooled = server.serve(request)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with torch.no_grad():
+            got = dlrm_forward(params, cfg, dense, pooled)
+        torch.cuda.synchronize()
+        serve_ms.append((t1 - t0) * 1e3)
+        dense_ms.append((time.perf_counter() - t1) * 1e3)
+        want = dcnv2_reference.forward(params, dense, request)
+        if got.shape != (DCNV2_BATCH,) or not torch.isfinite(got).all():
+            raise AssertionError(f"dcnv2: bad logits {tuple(got.shape)}")
+        scale = float(want.double().abs().max())
+        top = max(top, scale)
+        rel = max(rel, float((got.double() - want.double()).abs().max()) / scale)
+    launches = crossbar_reduce_cuda.launches - launches0
+    server.close()
+    out = {
+        "tables": cfg.num_tables, "rows": sum(cfg.table_rows), "embed_dim": cfg.embed_dim,
+        "cross_width": cfg.top_in, "low_rank": cfg.dcn_low_rank_dim,
+        "requests": DCNV2_REQUESTS, "samples": DCNV2_BATCH, "plan_build_s": plan_s,
+        "largest_logit": top, "rel_err": rel, "rel_tol": DCNV2_REL_TOL,
+        "serve_p50_ms": float(np.median(serve_ms)), "dense_p50_ms": float(np.median(dense_ms)),
+        "kernel_launches": launches,
+    }
+    log("dcnv2", json.dumps(out))
+    if not rel <= DCNV2_REL_TOL or top <= 1.0:
+        raise AssertionError(f"dcnv2: logits {rel} of the largest {top} from the reference")
+    if launches <= 0:
+        raise AssertionError("dcnv2 ran no crossbar kernel launch")
+    return out
+
+
 def da_case(torch, gen, b, S, kvh, g, hd, dtype):
     """Random decode-attention inputs on the card: int8 K/V entries with
     per-(position, head) scales, as the cache holds them; q and scales in
@@ -4431,6 +4521,9 @@ def main() -> int:
     mark("embedding-bag")
     dlrm = phase_dlrm(torch, np, timer, server, tables, histories)
     mark("dlrm")
+    dcnv2 = phase_dcnv2(torch, np)
+    torch.cuda.empty_cache()
+    mark("dcnv2")
     # the LM phases start from an empty card: their peak memory is their own
     del server, tables, streams, histories
     torch.cuda.empty_cache()
@@ -4464,12 +4557,13 @@ def main() -> int:
     crossbar_src = "src/repro_torch/kernels/csrc/crossbar_reduce.cu"
     kernels = [
         # launches over the serving, serving-async, serving-mesh (every
-        # rank), serving-replan and serving-tiers phases
+        # rank), serving-replan, serving-tiers and dcnv2 phases
         kernel_entry("crossbar_reduce_blocked", crossbar_src,
                      "src/repro/kernels/crossbar_reduce.py:103",
                      serving["kernel_launches"] + serving_async["kernel_launches"]
                      + serving_mesh["kernel_launches"]
-                     + serving_replan["kernel_launches"] + serving_tiers["kernel_launches"],
+                     + serving_replan["kernel_launches"] + serving_tiers["kernel_launches"]
+                     + dcnv2["kernel_launches"],
                      serving_row),
         # launches over the flat-op, quickstart and DLRM phases
         kernel_entry("crossbar_reduce_flat", crossbar_src,

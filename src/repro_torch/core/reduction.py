@@ -258,9 +258,10 @@ class ShardedBlockedQueries:
     shard_widths: np.ndarray  # (P,) widest per-shard block union, pre-pad
     shards: np.ndarray | None = None  # (P,) global shard ids of the stack
     # (None = all shards in order, the full-flush compile)
-    #: (slots, single-entry slots), counted only while tracing is on
-    #: (:mod:`repro_torch.core.trace`); the dispatch credits them
-    slot_counts: tuple[int, int] | None = None
+    #: (slots, single-entry slots, ones in the other slots), counted only
+    #: while tracing is on (:mod:`repro_torch.core.trace`); the dispatch
+    #: credits them
+    slot_counts: tuple[int, int, int] | None = None
 
     @property
     def num_shards(self) -> int:
@@ -385,11 +386,12 @@ def _shard_union(plan, parts, vt, vblk, nb_safe: int, max_tiles: int | None) -> 
                        num_slots=int(uniq.size))
 
 
-def _slot_counts(union: _ShardUnion, popcounts: np.ndarray) -> tuple[int, int]:
-    """(slots, single-entry slots): the kernel's READ rule, at most one
-    nonzero entry in the slot, from each activation's popcount."""
+def _slot_counts(union: _ShardUnion, popcounts: np.ndarray) -> tuple[int, int, int]:
+    """(slots, single-entry slots, ones in the other slots): the kernel's
+    READ rule, at most one nonzero entry in the slot, from each
+    activation's popcount, and the ones that the MAC slots sum."""
     held = np.bincount(union.slot, weights=popcounts, minlength=union.num_slots)
-    return union.num_slots, int((held <= 1).sum())
+    return union.num_slots, int((held <= 1).sum()), int(held[held > 1].sum())
 
 
 def shard_block_queries(

@@ -1,4 +1,5 @@
-"""Spans and counters of the serve path and the plan build (``RECROSS_TRACE``).
+"""Spans and counters of the serve path, the plan build and the DLRM
+forward (``RECROSS_TRACE``).
 
 One process-wide switch, read once from ``RECROSS_TRACE`` (any non-empty
 value turns it on) and set by :func:`set_enabled`.
@@ -48,17 +49,24 @@ There is no exporter: the profiler's trace is the timeline, and
 ``plan.placement``        ``plan_shards`` (once a build)
 ``plan.image``            the fused image, the shard images and their copy
                           to the device (once a build)
+``model.bottom``          ``models.dlrm.dlrm_forward``'s bottom MLP (one a
+                          forward)
+``model.interaction``     its dot interaction or low-rank cross network
+                          (one a forward)
+``model.top``             its top MLP (one a forward)
 ========================  ====================================================
 
 Counters: ``h2d_bytes`` (every host-to-device copy
 ``core.reduction._to_device`` issues), ``expand_entries`` (the ones
 ``shard_block_activations`` sets in a bitmap on a CUDA device), ``slots``
-(non-padding ``(shard, block, tile)`` slots dispatched) and ``read_slots`` (those the
+(non-padding ``(shard, block, tile)`` slots dispatched), ``read_slots`` (those the
 crossbar kernel takes down its READ path: the switch on and at most one
 nonzero bitmap entry across the slot's ``q_block × tile_rows``; for
 ``q_block`` above 16 the kernel decides per 16-query chunk, and the count
-is a lower bound).  The slot counts cost host work and are made only
-while tracing is on.
+is a lower bound) and ``mac_ones`` (the nonzero bitmap entries that the
+other slots, the MAC path's, sum: at most ``q_block × tile_rows`` a
+slot).  The slot counts cost host work and are made only while tracing
+is on.
 """
 
 from __future__ import annotations

@@ -4,10 +4,13 @@ the dense decoder LM's parameters, RoPE and decode attention
 
 from repro_torch.models.dlrm import (
     DLRMConfig,
+    TorchRecDLRMConfig,
     build_images,
     dlrm_forward,
     dlrm_loss,
+    init_dense,
     init_dlrm,
 )
 
-__all__ = ["DLRMConfig", "build_images", "dlrm_forward", "dlrm_loss", "init_dlrm"]
+__all__ = ["DLRMConfig", "TorchRecDLRMConfig", "build_images", "dlrm_forward", "dlrm_loss",
+           "init_dense", "init_dlrm"]

@@ -973,9 +973,13 @@ class ShardedEmbeddingServer:
         Credits the batch's slot counts to the trace, where it has them."""
         with trace.span("serve.dispatch"):
             if sbq.slot_counts is not None:
-                slots, single = sbq.slot_counts
+                slots, single, multi_ones = sbq.slot_counts
                 trace.count("slots", slots)
                 trace.count("read_slots", single if self.dynamic_switch else 0)
+                # a slot holds at least one one, so a single-entry slot
+                # holds exactly one; with the switch off it is summed too
+                trace.count("mac_ones", multi_ones if self.dynamic_switch
+                            else multi_ones + single)
             if self.mesh is None:
                 return crossbar_reduce_tables(
                     self.shard_images, sbq, spans,

@@ -5,7 +5,8 @@ Off, nothing is recorded.  On, every span is recorded where its work
 happens, ``serve.compile`` equals the server's own host compile seconds,
 the spans nest under ``serve.request`` in a profiler's trace (and call no
 ``record_function`` outside one), and the slot counters equal a
-brute-force count of the kernel's READ rule.
+brute-force count of the kernel's READ rule and of the ones its MAC slots
+sum.
 """
 
 import numpy as np
@@ -74,9 +75,10 @@ def test_on_records_every_span_where_its_work_happens():
     # and expands no bitmap on a card; the dense compile's stages are gone
     assert calls == {"serve.request": 3, "serve.compile": 3, "compile.activations": 6,
                      "compile.shard_block": 3, "compile.upload": 3, "serve.dispatch": 3}
-    assert set(got["counters"]) == {"slots", "read_slots"}
+    assert set(got["counters"]) == {"slots", "read_slots", "mac_ones"}
     assert got["counters"].get("expand_entries", 0) == 0
     assert 0 < got["counters"]["read_slots"] <= got["counters"]["slots"]
+    assert got["counters"]["mac_ones"] > 0
 
 
 def test_tiers_place_once_a_build():
@@ -129,10 +131,18 @@ def test_spans_nest_under_the_request_in_a_profiler_trace(monkeypatch):
 
 
 def _brute_force(sbq):
-    """Non-padding slots, and those with at most one nonzero entry."""
+    """Non-padding slots, those with at most one nonzero entry, and the
+    nonzero entries of the others."""
     held = (sbq.bitmaps != 0).sum((-2, -1))
     real = sbq.tile_ids >= 0
-    return int(real.sum()), int((real & (held <= 1)).sum())
+    return (int(real.sum()), int((real & (held <= 1)).sum()),
+            int(held[real & (held > 1)].sum()))
+
+
+def _ones(sbq):
+    """Every nonzero entry of the non-padding slots."""
+    held = (sbq.bitmaps != 0).sum((-2, -1))
+    return int(held[sbq.tile_ids >= 0].sum())
 
 
 @pytest.mark.parametrize("switch", [True, False])
@@ -146,19 +156,23 @@ def test_slot_counters_equal_a_brute_force_count(switch):
         out = compile_batch(*a, **kw)
         # counted now: the bitmap is the server's kept-zeroed buffer, which
         # the next compile clears
-        seen.append((out[1].slot_counts, _brute_force(out[1])))
+        seen.append((out[1].slot_counts, _brute_force(out[1]), _ones(out[1])))
         return out
 
     server._compile_batch = capturing
     trace.reset()
     for seed in (1, 2):
         server.serve(_request(seed))
-    slots = sum(brute[0] for _, brute in seen)
-    single = sum(brute[1] for _, brute in seen)
-    assert [counted for counted, _ in seen] == [brute for _, brute in seen]
-    assert 0 < single < slots
+    slots = sum(brute[0] for _, brute, _ in seen)
+    single = sum(brute[1] for _, brute, _ in seen)
+    multi_ones = sum(brute[2] for _, brute, _ in seen)
+    ones = sum(n for _, _, n in seen)
+    assert [counted for counted, _, _ in seen] == [brute for _, brute, _ in seen]
+    assert 0 < single < slots and 0 < multi_ones < ones
     counters = trace.totals()["counters"]
-    assert counters == {"slots": slots, "read_slots": single if switch else 0}
+    # with the switch off every slot takes the MAC path, and sums its ones
+    assert counters == {"slots": slots, "read_slots": single if switch else 0,
+                        "mac_ones": multi_ones if switch else ones}
 
 
 def test_slots_are_not_counted_while_off():
